@@ -1,0 +1,53 @@
+"""Simulation entry points: ``run_async`` and ``run_sync``.
+
+The engine modules are imported inside the runners: ``repro_torch.sim.
+engine`` depends on ``repro_torch.core``, so a module-level import here
+would cycle.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Sequence
+
+from repro_torch.configs.base import FLConfig
+from repro_torch.sim.base import SimResult
+from repro_torch.sim.scenarios import LatencyModel
+from repro_torch.utils.device import DeviceLike
+
+_NOT_PORTED = {
+    "legacy": "the per-event legacy engine is deferred to the rest of "
+              "Slice A (ROADMAP.md, Queue 1)",
+    "population": "the population engine comes with Slice D (ROADMAP.md)",
+}
+
+
+def run_async(loss_fn: Callable, init_params: Any, clients: Sequence,
+              fl: FLConfig, total_rounds: int,
+              eval_fn: Optional[Callable[[Any], Dict]] = None,
+              eval_every: int = 5,
+              latency: Optional[LatencyModel] = None,
+              seed: int = 0,
+              engine: str = "vectorized",
+              device: DeviceLike = "cuda",
+              **kw) -> SimResult:
+    """Simulate buffered-async FL for ``total_rounds`` server rounds.
+
+    Runs on CUDA unless ``device="cpu"``; raises ``RuntimeError`` when CUDA
+    is asked for and absent. Only ``engine="vectorized"`` is ported; it
+    accepts ``scenario=``, ``behavior=``, ``trace=`` and
+    ``rounds_per_launch=``.
+    """
+    if engine in _NOT_PORTED:
+        raise NotImplementedError(f"engine={engine!r} is not ported: "
+                                  f"{_NOT_PORTED[engine]}")
+    if engine != "vectorized":
+        raise ValueError(f"unknown engine {engine!r}; valid: 'vectorized'")
+    from repro_torch.sim.engine import run_vectorized
+    return run_vectorized(loss_fn, init_params, clients, fl, total_rounds,
+                          eval_fn=eval_fn, eval_every=eval_every,
+                          latency=latency, seed=seed, device=device, **kw)
+
+
+def run_sync(*args, **kw) -> SimResult:
+    """See ``repro_torch.sim.legacy.run_sync``."""
+    from repro_torch.sim.legacy import run_sync as f
+    return f(*args, **kw)

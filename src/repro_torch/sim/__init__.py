@@ -1,0 +1,21 @@
+"""Host-side simulation types (numpy) and the engines (imported on demand).
+
+``scenarios`` — registry of named, composable client-behavior models.
+``traces``    — record/replay of client timelines.
+``base``      — ``SimResult`` and the round-log / eval helpers.
+``engine``    — the vectorized round engine (``run_vectorized``).
+``legacy``    — synchronous FedAvg (``run_sync``).
+
+Only the numpy modules load here; import ``repro_torch.sim.engine`` or
+``repro_torch.sim.legacy`` for the engines.
+"""
+from repro_torch.sim.base import SimResult, make_batches, resolve_behavior  # noqa: F401
+from repro_torch.sim.scenarios import (  # noqa: F401
+    ClientBehavior,
+    LatencyModel,
+    Scenario,
+    get_scenario,
+    register,
+    registry,
+)
+from repro_torch.sim.traces import EventTrace  # noqa: F401

@@ -1,0 +1,232 @@
+"""Vectorized buffered-async FL simulation engine on one device.
+
+The FedBuff structure makes every server round exactly one window of K
+uploads, and within a window no aggregation happens until the K-th
+upload, so all K clients' local training depends only on state known at
+the window start. Each round therefore runs as one K-client batch
+(``core/round_body.py``) against a device-resident version ring:
+
+    ring   (R, Np)   version ring of padded flat parameter rows
+                     (R = max_staleness + 1)
+    bases  = ring[base_slots]                      # flat gather
+    deltas = vmap(local_update)(unflatten(bases))  # K clients, one call
+    losses = vmap(loss(params, probe_k))           # eq. 4 probes
+    x', info = apply_server_round(...)             # eq. 3 + 4 + 5
+    ring[slot(t+1)] = x'                           # flat write
+
+A client's upload timeline never depends on server state, so the host
+walks the event heap ahead of the device: it collects up to
+``rounds_per_launch`` windows, moves their stacked arrays to the device in
+one transfer per array, and runs those S rounds back to back. Round infos
+stay on the device; the whole run's round log is fetched ONCE at the end,
+never with a per-round host sync. Launch chunks are clipped to eval
+boundaries, so the eval cadence matches the JAX engine's.
+
+The host event walk (``collect_window``) is the JAX engine's, unchanged:
+uploads in (time, client) heap order, dropped uploads re-pull and retrain,
+bases older than the ring resync to the current model with staleness 0.
+"""
+from __future__ import annotations
+
+import heapq
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import FLConfig
+from repro_torch.core.round_body import make_ring_round
+from repro_torch.core.server_pass import flatten_tree, make_flat_spec
+from repro_torch.sim.base import (
+    SimResult,
+    record_eval,
+    resolve_behavior,
+    round_log_rows,
+)
+from repro_torch.sim.scenarios import ClientBehavior, LatencyModel, Scenario
+from repro_torch.sim.traces import EventTrace
+from repro_torch.utils.device import DeviceLike, resolve_device
+from repro_torch.utils.tree import tree_map
+
+_LOG_FIELDS = ("weights", "staleness", "stat_effect", "sq_dists")
+
+
+def init_version_ring(init_params: Any, fl: FLConfig) -> torch.Tensor:
+    """R = max_staleness + 1 copies of the flat initial params: an
+    (R, n_padded) f32 tensor on the params' device."""
+    spec = make_flat_spec(init_params, fl.server_pass_block_n)
+    row = flatten_tree(spec, init_params)
+    return row[None].repeat(fl.max_staleness + 1, 1)
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
+                   fl: FLConfig, total_rounds: int,
+                   eval_fn: Optional[Callable[[Any], Dict]] = None,
+                   eval_every: int = 5,
+                   latency: Optional[LatencyModel] = None,
+                   seed: int = 0,
+                   behavior: Optional[ClientBehavior] = None,
+                   scenario: Optional[Scenario] = None,
+                   trace: Optional[EventTrace] = None,
+                   rounds_per_launch: int = 8,
+                   device: DeviceLike = "cuda") -> SimResult:
+    """Simulate buffered-async FL on ``device`` (CUDA unless asked otherwise).
+
+    Same contract as the JAX ``run_vectorized`` on one device; behavior
+    precedence: ``trace`` (replay) > ``behavior`` > ``scenario`` >
+    ``latency``; recording a trace is not ported. ``init_params`` (a
+    nested dict of tensors or arrays) is copied onto ``device``.
+    ``SimResult.num_launches`` counts the launch chunks dispatched;
+    ``SimResult.final_params`` holds the last round's params.
+    """
+    dev = resolve_device(device)
+    n = len(clients)
+    k = fl.buffer_size
+    beh = resolve_behavior(n, seed, behavior, scenario, latency, trace)
+    ring_depth = fl.max_staleness + 1
+    ring_round = make_ring_round(loss_fn, fl, dev)
+    num_launches = 0
+
+    def chunk_step(params, ring, base_slots, batches, probes, sizes, taus,
+                   new_slots):
+        """S whole rounds (K local trainings + eq. 3/4/5 each); the ring
+        advances on the device between rounds."""
+        infos = []
+        for j, new_slot in enumerate(new_slots):
+            params, ring, info = ring_round(
+                params, ring, base_slots[j],
+                tuple(b[j] for b in batches), tuple(p[j] for p in probes),
+                sizes[j], taus[j], new_slot)
+            infos.append(torch.stack([info[f] for f in _LOG_FIELDS]))
+        return params, ring, torch.stack(infos)  # (S, fields, K)
+
+    params = tree_map(lambda v: torch.as_tensor(v).to(dev, copy=True),
+                      init_params)
+    ring = init_version_ring(params, fl)
+    version = 0
+    base_version = np.zeros(n, np.int64)
+    now = 0.0
+    history: List[Dict] = []
+    num_events = 0
+    # every client starts training at t=0 (availability-gated) from v0
+    events = []
+    for cid in range(n):
+        start = beh.next_start(cid, 0.0)
+        events.append((start + beh.duration(cid, start), cid))
+    heapq.heapify(events)
+    pending: List[Dict] = []  # per-chunk host metadata + device info handles
+
+    def maybe_eval(force=False):
+        record_eval(history, eval_fn, version, now, params, eval_every,
+                    force)
+
+    def reschedule(cid, t):
+        start = beh.next_start(cid, t)
+        heapq.heappush(events, (start + beh.duration(cid, start), cid))
+
+    def collect_window():
+        """Pop exactly K accepted uploads; the host event loop runs ahead
+        of the device, which is legal because upload times never depend
+        on server state. Returns the stacked per-window arrays."""
+        nonlocal num_events, now
+        window: List = []  # (t, cid, base_version, tau)
+        while len(window) < k:
+            t, cid = heapq.heappop(events)
+            num_events += 1
+            # one atomic consume: the attempt's index AND its drop verdict
+            _, lost = beh.next_upload(cid)
+            if lost:
+                # upload lost: client re-pulls the current model, retrains
+                base_version[cid] = version
+                reschedule(cid, t)
+                continue
+            bv = int(base_version[cid])
+            if bv < version - fl.max_staleness:  # fell out of the ring
+                bv = version  # resync: train from the current model, tau 0
+                base_version[cid] = version
+            window.append((t, cid, bv, version - bv))
+            if len(window) < k:
+                # no aggregation yet: re-pull the CURRENT version and go
+                base_version[cid] = version
+                reschedule(cid, t)
+        now = window[-1][0]  # the K-th upload triggers the aggregation
+        # probes draw AFTER all train draws (the aggregation-time order)
+        train = [clients[cid].batches(fl.batch_size, fl.local_steps)
+                 for _, cid, _, _ in window]
+        probes = [clients[cid].batch(fl.batch_size)
+                  for _, cid, _, _ in window]  # eq.-4 probes, FIFO order
+        return {
+            "clients": [cid for _, cid, _, _ in window],
+            "tau": [tau for _, _, _, tau in window],
+            "t_trigger": window[-1][0],
+            "cid_trigger": window[-1][1],
+            "batches": tuple(np.stack([b[i] for b in train])
+                             for i in range(2)),
+            "probes": tuple(np.stack([p[i] for p in probes])
+                            for i in range(2)),
+            "base_slots": np.asarray([bv % ring_depth
+                                      for _, _, bv, _ in window], np.int64),
+            "sizes": np.asarray([clients[cid].size
+                                 for _, cid, _, _ in window], np.float32),
+        }
+
+    maybe_eval(force=True)
+    while version < total_rounds:
+        # ---- clip the launch chunk to the next eval boundary ------------
+        horizon = total_rounds - version
+        if eval_fn:
+            horizon = min(horizon, eval_every - version % eval_every)
+        s = min(rounds_per_launch, horizon)
+
+        # ---- host: pre-compute S windows of events ----------------------
+        windows = []
+        for _ in range(s):
+            w = collect_window()
+            version += 1
+            # window clients re-pull: the K-th gets the NEW version
+            base_version[w["cid_trigger"]] = version
+            reschedule(w["cid_trigger"], w["t_trigger"])
+            windows.append(w)
+
+        # ---- device: the S rounds, inputs moved in one transfer each ----
+        put = lambda a: _to_device(a, dev)  # noqa: E731
+        params, ring, infos = chunk_step(
+            params, ring,
+            put(np.stack([w["base_slots"] for w in windows])),
+            tuple(put(np.stack([w["batches"][i] for w in windows]))
+                  for i in range(2)),
+            tuple(put(np.stack([w["probes"][i] for w in windows]))
+                  for i in range(2)),
+            put(np.stack([w["sizes"] for w in windows])),
+            put(np.asarray([w["tau"] for w in windows], np.float32)),
+            [(version - s + j + 1) % ring_depth for j in range(s)])
+        num_launches += 1
+        # keep only the round-log metadata; the batch arrays would
+        # otherwise pin O(total_rounds * K * batch) host memory
+        pending.append({"windows": [{"clients": w["clients"], "tau": w["tau"]}
+                                    for w in windows],
+                        "v_end": version, "infos": infos})
+        maybe_eval()
+    maybe_eval(force=True)
+
+    # ---- single device->host fetch for the whole run's round log --------
+    round_log: List[Dict] = []
+    if pending:
+        fetched = torch.cat([p["infos"] for p in pending]).cpu().numpy()
+        row = 0
+        for meta in pending:
+            windows = meta["windows"]
+            chunk = fetched[row:row + len(windows)]
+            row += len(windows)
+            logs = {f: chunk[:, i] for i, f in enumerate(_LOG_FIELDS)}
+            round_log.extend(round_log_rows(
+                meta["v_end"] - len(windows), k,
+                [w["clients"] for w in windows],
+                [w["tau"] for w in windows], logs))
+    return SimResult(history=history, server_rounds=version, sim_time=now,
+                     round_log=round_log, num_events=num_events,
+                     num_launches=num_launches, final_params=params)

@@ -1,0 +1,24 @@
+"""Device selection for the port's entry points.
+
+Entry points run on the card unless the caller asks for the CPU. There is
+no quiet fallback: asking for CUDA where no card is present raises.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device]
+
+
+def resolve_device(device: DeviceLike = "cuda") -> torch.device:
+    """``torch.device`` for ``device``; raises if CUDA is asked for but absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but CUDA is not available; "
+            "pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {str(dev)!r}: use 'cuda' or 'cpu'")
+    return dev

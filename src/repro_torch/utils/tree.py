@@ -1,0 +1,60 @@
+"""Nested-dict parameter trees, flattened in the JAX package's leaf order.
+
+Parameters in the port are nested ``dict``s of tensors (``{"c1": {"b":
+..., "w": ...}, ...}``). ``tree_leaves`` walks dict keys in sorted order at
+every level, which is the order ``jax.tree.flatten`` uses, so the flat
+parameter vector and every version-ring row line up element for element
+with the JAX package's.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+import torch
+
+Path = Tuple[str, ...]
+
+
+def tree_paths(tree: Any, prefix: Path = ()) -> List[Path]:
+    """Key paths of every leaf, dict keys sorted at every level."""
+    if isinstance(tree, dict):
+        out: List[Path] = []
+        for key in sorted(tree):
+            out.extend(tree_paths(tree[key], prefix + (key,)))
+        return out
+    return [prefix]
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """Leaves in sorted-key order (``jax.tree.leaves`` order for dicts)."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    return [tree]
+
+
+def tree_unflatten(paths: List[Path], leaves: List[Any]) -> Any:
+    """Inverse of ``tree_paths``/``tree_leaves``."""
+    if len(paths) == 1 and paths[0] == ():
+        return leaves[0]
+    out: dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leaf-wise over trees (dicts and tuples) of one structure."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, tree[key], *(r[key] for r in rest))
+                for key in tree}
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, *items) for items in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_sub(a: Any, b: Any) -> Any:
+    return tree_map(torch.sub, a, b)
+
