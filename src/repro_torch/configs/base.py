@@ -37,7 +37,7 @@ class FLConfig:
     # for a CUDA device and the plain-PyTorch reference body for the CPU
     server_pass_mode: str = "auto"  # auto | reference | batched | fused
     server_pass_block_n: int = 0  # flat-vector tile; 0 = auto (lane-aligned)
-    # compressed version store: only the f32 ring is ported so far
+    # compressed version store (core/version_store.py)
     ring_codec: str = "f32"  # f32 | int8 | delta
     ring_qblock: int = 256  # int8: params per affine quantization block
     ring_delta_density: float = 0.05  # delta: kept residual fraction of Np

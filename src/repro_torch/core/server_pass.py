@@ -129,13 +129,17 @@ def apply_server_round(x: torch.Tensor, bases: torch.Tensor,
                        data_sizes: torch.Tensor, taus: torch.Tensor,
                        fl: FLConfig, *,
                        arrival_mask: Optional[torch.Tensor] = None,
-                       mode: str = "reference"
+                       mode: str = "reference",
+                       sq_dists: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """eq. 3 + 4 + 5 on flat tensors. Returns (new_x, info dict of (K,)).
 
     x: (Np,), bases/deltas: (K, Np); losses/data_sizes/taus: (K,).
     ``arrival_mask`` zeroes absent slots (weights AND the k_eff divisor).
-    ``mode`` is a concrete mode (see ``resolve_mode``).
+    ``mode`` is a concrete mode (see ``resolve_mode``). ``sq_dists`` (K,)
+    are eq. 3 distances the compressed ring codecs computed themselves:
+    the pass then skips its own eq. 3 (and K1), weighting those distances
+    and reducing through K3 in both kernel modes.
     """
     if mode not in ("reference", "batched", "fused"):
         raise ValueError(f"unknown concrete mode {mode!r}")
@@ -144,7 +148,12 @@ def apply_server_round(x: torch.Tensor, bases: torch.Tensor,
     mask = (torch.ones((k,), dtype=torch.float32, device=bases.device)
             if arrival_mask is None else arrival_mask.to(torch.float32))
     taus = taus.to(torch.float32)
-    if mode == "fused":
+    if sq_dists is not None:
+        dists = sq_dists.to(torch.float32)
+        upd, s, w = _weight_and_reduce(
+            dists, deltas, p, taus, mask, fl,
+            use_kernel=mode in ("batched", "fused"))
+    elif mode == "fused":
         upd, dists, w = _ops.server_update(
             x, bases, deltas, p, taus, mask, policy=fl.weighting,
             eta_g=fl.global_lr, s_min=fl.s_min, poly_a=fl.poly_a,

@@ -26,22 +26,29 @@
 //
 // Determinism: the TPU kernels carry the distance sums across a sequential
 // grid. CUDA blocks run in no fixed order, so every cross-block sum here is
-// two-pass -- per-block partials, then a reduction in a fixed order -- and no
-// kernel uses atomics. The eq. 3 distances feed a min and the s_min floor,
+// two-pass -- per-block partials, then a reduction in a fixed order
+// (block_reduce.cuh, shared with ring_codec.cu) -- and no kernel uses
+// atomics. The eq. 3 distances feed a min and the s_min floor,
 // so they are bit-identical from run to run.
 //
 // Interface: plain C, loaded with ctypes. Every entry point launches on the
 // stream it is given, allocates nothing and returns cudaGetLastError().
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libweighted_agg.so weighted_agg.cu
+//        -Xcompiler -fPIC -I csrc -o libweighted_agg.so weighted_agg.cu
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_reduce.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;              // 8 warps per block
-constexpr int kWarps = kThreads / 32;
+using block_reduce::block_sum;
+using block_reduce::kThreads;
+using block_reduce::kWarps;
+using block_reduce::reduce_partials_kernel;
+using block_reduce::row_sum;
+
 constexpr int kDistElems = 8;              // K2: elements per thread per tile
 constexpr int kDistTile = kThreads * kDistElems;   // 2048 elements
 constexpr int kSumElems = 4;               // K3: elements per thread
@@ -55,25 +62,6 @@ enum Policy : int {
   kHinge = 3,           // fedasync_hinge
   kPoly = 4,            // polynomial, fedasync, fedasync_poly: (1+tau)^-a
 };
-
-// Sum over the block in a fixed order (shuffle tree, then warp 0 over the
-// kWarps warp sums). The result is valid in thread 0 only.
-__device__ __forceinline__ float block_sum(float v, float* smem) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  if (lane == 0) smem[warp] = v;
-  __syncthreads();
-  float r = 0.f;
-  if (warp == 0) {
-    r = lane < kWarps ? smem[lane] : 0.f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) r += __shfl_down_sync(0xffffffffu, r, off);
-  }
-  __syncthreads();  // smem may be reused by the caller's next block_sum
-  return r;
-}
 
 // K2 phase 0: partials[k * tiles + t] = sum over tile t of (b[k, n] - x[n])^2.
 // Block b handles (k = b % K, t = b / K): k runs fastest, so the K blocks of
@@ -103,24 +91,6 @@ sq_dist_partials_kernel(const float* __restrict__ x, const float* __restrict__ b
   }
   acc = block_sum(acc, smem);
   if (threadIdx.x == 0) partials[k * tiles + t] = acc;
-}
-
-// Sum of one partials row in a fixed order (each thread strides the row,
-// then block_sum). Valid in thread 0 only.
-__device__ __forceinline__ float row_sum(const float* __restrict__ row, int64_t tiles,
-                                         float* smem) {
-  float acc = 0.f;
-  for (int64_t t = threadIdx.x; t < tiles; t += kThreads) acc += row[t];
-  return block_sum(acc, smem);
-}
-
-// K2 phase 1: one block per k reduces its partials row.
-__global__ void __launch_bounds__(kThreads)
-reduce_partials_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                       int64_t tiles) {
-  __shared__ float smem[kWarps];
-  const float r = row_sum(partials + (int64_t)blockIdx.x * tiles, tiles, smem);
-  if (threadIdx.x == 0) out[blockIdx.x] = r;
 }
 
 // K1's boundary step, one block: reduce the distance partials, then eq. 3

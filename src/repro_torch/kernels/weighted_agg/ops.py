@@ -15,6 +15,7 @@ import torch
 from repro_torch.core.weighting import POLICIES
 from repro_torch.kernels.weighted_agg import kernel as _k
 from repro_torch.kernels.weighted_agg import ref as _ref
+from repro_torch.utils.device import on_cuda
 
 LANE = 128
 DEFAULT_BLOCK_N = 16 * 1024
@@ -36,17 +37,6 @@ def pick_block(n: int) -> int:
     return max(LANE, pad_to(n, LANE))
 
 
-def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True for CUDA inputs, False for CPU inputs; raises on anything else."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"inputs lie on several devices: {sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cuda"
-
-
 def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
 
@@ -66,7 +56,7 @@ def sq_dists(x: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
     """x: (N,), bases: (K, N) -> (K,) squared distances ||x - base_k||^2."""
     k, n = _check_kn(bases, "bases")
     _check_vec(x, n, "x")
-    if not _on_cuda(x, bases):
+    if not on_cuda(x, bases):
         return _ref.sq_dists_ref(x, bases)
     out = _k.sq_dists(_f32(x), _f32(bases))
     sq_dists.launches += 1
@@ -80,7 +70,7 @@ def weighted_sum(deltas: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """deltas: (K, N), weights: (K,) -> (N,) = sum_k w_k * deltas_k."""
     k, _ = _check_kn(deltas, "deltas")
     _check_vec(weights, k, "weights")
-    if not _on_cuda(deltas, weights):
+    if not on_cuda(deltas, weights):
         return _ref.weighted_sum_ref(deltas, weights)
     out = _k.weighted_sum(_f32(deltas), _f32(weights))
     weighted_sum.launches += 1
@@ -119,7 +109,7 @@ def server_update(x: torch.Tensor, bases: torch.Tensor, deltas: torch.Tensor,
         _check_vec(v, k, name)
     cfg = dict(policy=policy, eta_g=eta_g, s_min=s_min, poly_a=poly_a,
                hinge_a=hinge_a, hinge_b=hinge_b, normalize=normalize)
-    if not _on_cuda(x, bases, deltas, p_stat, taus, arrival_mask):
+    if not on_cuda(x, bases, deltas, p_stat, taus, arrival_mask):
         return _ref.server_update_ref(x, bases, deltas, p_stat, taus,
                                       arrival_mask, **cfg)
     out = _k.fused_server(_f32(x), _f32(bases), _f32(deltas), _f32(p_stat),

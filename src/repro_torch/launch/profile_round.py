@@ -9,6 +9,7 @@ profiled wall time (sum of device-side kernel and copy time over wall
 time; one stream, so nothing overlaps), and the device time by kernel.
 
     python -m repro_torch.launch.profile_round [--rounds 5] [--mode fused]
+        [--ring-codec f32|int8|delta]
 """
 from __future__ import annotations
 
@@ -29,9 +30,11 @@ from repro_torch.utils.device import resolve_device
 
 WARMUP_ROUNDS = 3  # untimed: one-time CUDA/cuDNN set-up
 TOP = 12  # kernels listed
-# kernels of csrc/weighted_agg.cu, by the names the profiler reports
+# kernels of csrc/weighted_agg.cu and csrc/ring_codec.cu, by the names the
+# profiler reports
 OWN_KERNELS = ("sq_dist_partials_kernel", "reduce_partials_kernel",
-               "fused_weights_kernel", "weighted_sum_kernel")
+               "fused_weights_kernel", "weighted_sum_kernel",
+               "int8_sq_dist_partials_kernel")
 
 
 def _run(fl, rounds, init, sc, device):
@@ -49,11 +52,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--mode", default="fused",
                     choices=["fused", "batched", "reference"])
+    ap.add_argument("--ring-codec", default="f32",
+                    choices=["f32", "int8", "delta"])
     a = ap.parse_args(argv)
     dev = resolve_device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    fl = dataclasses.replace(PAPER_FL, server_pass_mode=a.mode)
+    fl = dataclasses.replace(PAPER_FL, server_pass_mode=a.mode,
+                             ring_codec=a.ring_codec)
     sc = get_scenario("paper-fig1")
     init = init_lenet(torch.Generator().manual_seed(0))
 
@@ -72,6 +78,7 @@ def main(argv=None) -> dict:
     own_ms = sum(r[2] for r in rows if any(k in r[0] for k in OWN_KERNELS))
     out = {
         "device": torch.cuda.get_device_name(0), "mode": a.mode,
+        "ring_codec": a.ring_codec,
         "rounds": a.rounds, "rounds_per_s": a.rounds / wall,
         "round_ms": wall / a.rounds * 1e3,
         "profiled_round_ms": wall_prof / a.rounds * 1e3,
@@ -81,7 +88,8 @@ def main(argv=None) -> dict:
         "top": [{"name": k[:90], "calls": c, "ms_per_round": ms / a.rounds}
                 for k, c, ms in rows[:TOP]],
     }
-    print(f"{out['device']}  mode={a.mode}: {out['rounds_per_s']:.2f} rounds/s"
+    print(f"{out['device']}  mode={a.mode} ring_codec={a.ring_codec}: "
+          f"{out['rounds_per_s']:.2f} rounds/s"
           f" ({out['round_ms']:.2f} ms/round; {out['profiled_round_ms']:.2f}"
           f" under the profiler)")
     print(f"device busy {out['device_ms_per_round']:.3f} ms/round = "

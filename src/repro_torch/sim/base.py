@@ -29,6 +29,8 @@ class SimResult:
     # the server's parameters after the last round (a nested dict of
     # tensors on the run's device)
     final_params: Optional[object] = None
+    # an engine snapshot for resuming (``run_vectorized(capture_state=True)``)
+    final_state: Optional[object] = None
 
     def rounds_to_target(self, metric: str, target: float) -> Optional[int]:
         for h in self.history:

@@ -6,13 +6,13 @@ upload, so all K clients' local training depends only on state known at
 the window start. Each round therefore runs as one K-client batch
 (``core/round_body.py``) against a device-resident version ring:
 
-    ring   (R, Np)   version ring of padded flat parameter rows
-                     (R = max_staleness + 1)
-    bases  = ring[base_slots]                      # flat gather
+    ring   version store of R = max_staleness + 1 padded flat parameter
+           rows (``core/version_store.py``: f32, int8 or delta codec)
+    bases  = decode(ring, base_slots)              # flat gather
     deltas = vmap(local_update)(unflatten(bases))  # K clients, one call
     losses = vmap(loss(params, probe_k))           # eq. 4 probes
     x', info = apply_server_round(...)             # eq. 3 + 4 + 5
-    ring[slot(t+1)] = x'                           # flat write
+    ring   = encode(ring, slot(t+1), x')           # flat write, in place
 
 A client's upload timeline never depends on server state, so the host
 walks the event heap ahead of the device: it collects up to
@@ -25,23 +25,32 @@ boundaries, so the eval cadence matches the JAX engine's.
 The host event walk (``collect_window``) is the JAX engine's, unchanged:
 uploads in (time, client) heap order, dropped uploads re-pull and retrain,
 bases older than the ring resync to the current model with staleness 0.
+
+``capture_state=True`` snapshots the run (ring, params, event heap, every
+host RNG stream, round log, history) as an ``EngineState``; passed back as
+``init_state`` it resumes the run bit-identically. ``engine_state_to_tree``
+gives the arrays ``checkpoint/ckpt.py`` writes, in the JAX engine's layout.
 """
 from __future__ import annotations
 
 import heapq
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.round_body import make_ring_round
-from repro_torch.core.server_pass import flatten_tree, make_flat_spec
+from repro_torch.core.version_store import build_ring, ring_state_to_host
 from repro_torch.sim.base import (
     SimResult,
+    history_from_arrays,
+    history_to_arrays,
     record_eval,
     resolve_behavior,
+    round_log_from_arrays,
     round_log_rows,
+    round_log_to_arrays,
 )
 from repro_torch.sim.scenarios import ClientBehavior, LatencyModel, Scenario
 from repro_torch.sim.traces import EventTrace
@@ -51,12 +60,82 @@ from repro_torch.utils.tree import tree_map
 _LOG_FIELDS = ("weights", "staleness", "stat_effect", "sq_dists")
 
 
-def init_version_ring(init_params: Any, fl: FLConfig) -> torch.Tensor:
-    """R = max_staleness + 1 copies of the flat initial params: an
-    (R, n_padded) f32 tensor on the params' device."""
-    spec = make_flat_spec(init_params, fl.server_pass_block_n)
-    row = flatten_tree(spec, init_params)
-    return row[None].repeat(fl.max_staleness + 1, 1)
+def init_version_ring(init_params: Any, fl: FLConfig, *,
+                      rows: Optional[Any] = None):
+    """Build the device-resident version store (``core/version_store.py``)
+    on the device of ``init_params``. Returns ``(spec, ring)``.
+
+    Each of the R = max_staleness + 1 retained versions is one padded flat
+    parameter vector, stored by the ``fl.ring_codec`` codec: the (R,
+    n_padded) f32 matrix for ``f32``, a compressed NamedTuple for ``int8``
+    and ``delta``. ``rows`` restores from a checkpointed host form
+    (``version_store.ring_state_to_host``, written by either package); a
+    codec or layout mismatch raises naming the codec and its layout.
+    """
+    return build_ring(init_params, fl, rows=rows)
+
+
+class EngineState(NamedTuple):
+    """Host-side snapshot of a ``run_vectorized`` run at a round boundary.
+
+    Everything a resumed run needs to be bit-identical to the
+    uninterrupted one: the version ring and params, the host event heap,
+    the per-client behavior RNG streams (``ClientBehavior.get_state``), the
+    datasets' batch streams, and the round log and eval history so far.
+    Serialise with ``engine_state_to_tree`` (arrays only, ``save_checkpoint``
+    -able) and restore with ``engine_state_from_tree``.
+    """
+
+    version: int
+    now: float
+    num_events: int
+    base_version: np.ndarray  # (n,) int64
+    events: Tuple[Tuple[float, int], ...]  # pending (t, cid) uploads
+    params: Any  # nested dict of numpy arrays
+    ring: Any  # codec host state: (R, n_padded) f32 matrix for the f32
+    # codec, a codec-stamped dict of arrays for int8/delta
+    behavior: Dict[str, np.ndarray]
+    dataset_rng: np.ndarray  # (n, 6) uint64 ClientDataset batch streams
+    history: List[Dict]
+    round_log: List[Dict]
+
+
+def engine_state_to_tree(state: EngineState) -> Dict[str, Any]:
+    """EngineState -> nested dict of plain arrays (``save_checkpoint``-able)."""
+    ev = np.asarray(sorted(state.events), np.float64).reshape(-1, 2)
+    return {
+        "meta": {"version": np.int64(state.version),
+                 "now": np.float64(state.now),
+                 "num_events": np.int64(state.num_events)},
+        "base_version": np.asarray(state.base_version, np.int64),
+        "events": ev,
+        "params": state.params,
+        "ring": (dict(state.ring) if isinstance(state.ring, dict)
+                 else np.asarray(state.ring, np.float32)),
+        "behavior": dict(state.behavior),
+        "dataset_rng": np.asarray(state.dataset_rng, np.uint64),
+        "round_log": round_log_to_arrays(state.round_log),
+        "history": history_to_arrays(state.history),
+    }
+
+
+def engine_state_from_tree(tree: Dict[str, Any]) -> EngineState:
+    """Inverse of ``engine_state_to_tree``."""
+    ev = np.asarray(tree["events"], np.float64).reshape(-1, 2)
+    return EngineState(
+        version=int(tree["meta"]["version"]),
+        now=float(tree["meta"]["now"]),
+        num_events=int(tree["meta"]["num_events"]),
+        base_version=np.asarray(tree["base_version"], np.int64),
+        events=tuple((float(t), int(c)) for t, c in ev),
+        params=tree["params"],
+        ring=(dict(tree["ring"]) if isinstance(tree["ring"], dict)
+              else np.asarray(tree["ring"], np.float32)),
+        behavior=dict(tree["behavior"]),
+        dataset_rng=np.asarray(tree["dataset_rng"], np.uint64),
+        history=history_from_arrays(tree["history"]),
+        round_log=round_log_from_arrays(tree["round_log"]),
+    )
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -73,6 +152,8 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
                    scenario: Optional[Scenario] = None,
                    trace: Optional[EventTrace] = None,
                    rounds_per_launch: int = 8,
+                   init_state: Optional[EngineState] = None,
+                   capture_state: bool = False,
                    device: DeviceLike = "cuda") -> SimResult:
     """Simulate buffered-async FL on ``device`` (CUDA unless asked otherwise).
 
@@ -82,13 +163,18 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
     nested dict of tensors or arrays) is copied onto ``device``.
     ``SimResult.num_launches`` counts the launch chunks dispatched;
     ``SimResult.final_params`` holds the last round's params.
+
+    ``capture_state=True`` attaches an ``EngineState`` snapshot to
+    ``SimResult.final_state``; passing it back as ``init_state`` (same
+    loss/clients/config/seed) resumes the run bit-identically to the
+    uninterrupted one. ``total_rounds`` always counts from round 0, so a
+    resume runs ``total_rounds - init_state.version`` more rounds.
     """
     dev = resolve_device(device)
     n = len(clients)
     k = fl.buffer_size
     beh = resolve_behavior(n, seed, behavior, scenario, latency, trace)
     ring_depth = fl.max_staleness + 1
-    ring_round = make_ring_round(loss_fn, fl, dev)
     num_launches = 0
 
     def chunk_step(params, ring, base_slots, batches, probes, sizes, taus,
@@ -104,20 +190,48 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
             infos.append(torch.stack([info[f] for f in _LOG_FIELDS]))
         return params, ring, torch.stack(infos)  # (S, fields, K)
 
-    params = tree_map(lambda v: torch.as_tensor(v).to(dev, copy=True),
-                      init_params)
-    ring = init_version_ring(params, fl)
-    version = 0
-    base_version = np.zeros(n, np.int64)
-    now = 0.0
-    history: List[Dict] = []
-    num_events = 0
-    # every client starts training at t=0 (availability-gated) from v0
-    events = []
-    for cid in range(n):
-        start = beh.next_start(cid, 0.0)
-        events.append((start + beh.duration(cid, start), cid))
-    heapq.heapify(events)
+    def to_device(tree):
+        return tree_map(lambda v: torch.as_tensor(v).to(dev, copy=True), tree)
+
+    if init_state is None:
+        params = to_device(init_params)
+        spec, ring = init_version_ring(params, fl)
+        version = 0
+        base_version = np.zeros(n, np.int64)
+        now = 0.0
+        history: List[Dict] = []
+        round_log_prefix: List[Dict] = []
+        num_events = 0
+        # every client starts training at t=0 (availability-gated) from v0
+        events = []
+        for cid in range(n):
+            start = beh.next_start(cid, 0.0)
+            events.append((start + beh.duration(cid, start), cid))
+        heapq.heapify(events)
+    else:
+        if len(init_state.base_version) != n:
+            raise ValueError(
+                f"checkpoint has {len(init_state.base_version)} clients, "
+                f"this run has {n}")
+        beh.set_state(init_state.behavior)
+        for c, row in zip(clients, init_state.dataset_rng):
+            c.set_rng_state(row)
+        params = to_device(init_state.params)
+        spec, ring = init_version_ring(params, fl, rows=init_state.ring)
+        version = init_state.version
+        base_version = np.asarray(init_state.base_version, np.int64).copy()
+        now = init_state.now
+        history = [dict(h) for h in init_state.history]
+        if eval_fn and history and history[-1]["round"] == version \
+                and version % eval_every:
+            # the snapshot run's trailing FORCED eval: off the cadence, the
+            # uninterrupted run never evaluates here, so drop it
+            history.pop()
+        round_log_prefix = [dict(r) for r in init_state.round_log]
+        num_events = init_state.num_events
+        events = [(float(t), int(c)) for t, c in init_state.events]
+        heapq.heapify(events)
+    ring_round = make_ring_round(loss_fn, fl, dev, spec)
     pending: List[Dict] = []  # per-chunk host metadata + device info handles
 
     def maybe_eval(force=False):
@@ -174,7 +288,9 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
                                  for _, cid, _, _ in window], np.float32),
         }
 
-    maybe_eval(force=True)
+    if init_state is None:
+        # a resumed run's earlier evals are in the restored history
+        maybe_eval(force=True)
     while version < total_rounds:
         # ---- clip the launch chunk to the next eval boundary ------------
         horizon = total_rounds - version
@@ -214,7 +330,7 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
     maybe_eval(force=True)
 
     # ---- single device->host fetch for the whole run's round log --------
-    round_log: List[Dict] = []
+    round_log: List[Dict] = list(round_log_prefix)
     if pending:
         fetched = torch.cat([p["infos"] for p in pending]).cpu().numpy()
         row = 0
@@ -227,6 +343,17 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
                 meta["v_end"] - len(windows), k,
                 [w["clients"] for w in windows],
                 [w["tau"] for w in windows], logs))
+    final_state = None
+    if capture_state:
+        final_state = EngineState(
+            version=version, now=now, num_events=num_events,
+            base_version=base_version.copy(), events=tuple(sorted(events)),
+            params=tree_map(lambda t: t.detach().cpu().numpy(), params),
+            ring=ring_state_to_host(fl, ring), behavior=beh.get_state(),
+            dataset_rng=np.stack([c.rng_state() for c in clients]),
+            history=[dict(h) for h in history],
+            round_log=[dict(r) for r in round_log])
     return SimResult(history=history, server_rounds=version, sim_time=now,
                      round_log=round_log, num_events=num_events,
-                     num_launches=num_launches, final_params=params)
+                     num_launches=num_launches, final_params=params,
+                     final_state=final_state)

@@ -22,3 +22,18 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA inputs, False for CPU inputs; raises on anything else.
+
+    The kernel wrappers' dispatch rule: the plain version for CPU tensors,
+    the kernel for CUDA tensors.
+    """
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cuda"

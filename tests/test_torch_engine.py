@@ -110,7 +110,7 @@ def test_engine_matches_jax(jax_params, jax_run, mode):
 
 def test_version_ring_bit_identical(jax_params):
     _, jr = j_ring(jax.tree.map(jnp.asarray, jax_params), JFL(**FL))
-    tr = t_ring(params_from_jax(jax_params, "cpu"), TFL(**FL))
+    _, tr = t_ring(params_from_jax(jax_params, "cpu"), TFL(**FL))
     assert tr.shape == (FL["max_staleness"] + 1, 49152)
     assert tr.numpy().tobytes() == np.asarray(jr).tobytes()
 

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import run_async, run_sync
+from repro_torch.core.version_store import build_ring
 from repro_torch.models import init_lenet, lenet_loss, params_from_jax
 from repro_torch.sim.scenarios import get_scenario
 from repro_torch.utils.device import resolve_device
@@ -86,7 +87,5 @@ def test_unported_engines_name_their_slice():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_async(lenet_loss, params, clients, fl, 1, engine=engine,
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice B"):
-        run_async(lenet_loss, params, clients,
-                  FLConfig(num_clients=4, buffer_size=2, ring_codec="int8"), 1,
-                  device="cpu")
+    with pytest.raises(NotImplementedError, match="Slice E"):
+        build_ring(params, fl, mesh=object())

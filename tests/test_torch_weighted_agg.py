@@ -98,8 +98,8 @@ def test_cpu_path_never_builds(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("the CPU path tried to build or load the kernels")
 
-    monkeypatch.setattr(tkernel, "build", refuse)
-    monkeypatch.setattr(tkernel, "load_library", refuse)
+    monkeypatch.setattr(tkernel.LIBRARY, "build", refuse)
+    monkeypatch.setattr(tkernel.LIBRARY, "load", refuse)
     x, bases, deltas, p, taus, mask = _t(*_case(4, 300))
     before = (tops.sq_dists.launches, tops.weighted_sum.launches,
               tops.server_update.launches)
