@@ -43,6 +43,20 @@ Phases, in order; any failure raises and exits non-zero:
    with ``capture_state``, ``save_checkpoint``/``load_checkpoint``,
    resumed to 10, bit-identical to the uninterrupted run (cuDNN
    deterministic).
+7. K5 (flash attention) against its plain version at Hymba-1.5B's shapes
+   (B=2, S=4096, 25 query and 5 kv heads, D=64) in bf16 and f32, window
+   1024 and 0 (causal), a ragged S (3001) and an S shorter than the window
+   (700); K6 (selective scan) at Hymba's widths (B=2, S=4096, di=3200,
+   N=16) and a ragged S (1001). Each timed beside its bound and its plain
+   version; K5 also beside ``scaled_dot_product_attention`` (enable_gqa, a
+   boolean band mask), the port never calls it.
+8. LM serving path, Hymba-1.5B at full width: ``Model.prefill_logits`` at
+   full depth (32 layers, bf16, port init from a seeded generator on the
+   card), B=2, S=4096, launching K5 and K6 exactly 32 times each, finite
+   logits, prefill tokens/s and peak memory; the same weights at 2 layers,
+   S=512, on the card against the CPU (f32 and bf16); decode against the
+   full forward at 4 layers, f32, S=1536 (the 1024-slot ring cache wraps);
+   ``launch/serve.py`` at full depth (batch 4, prompt 32, gen 16).
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -89,20 +103,51 @@ CODEC_DRIFT = 0.1
 CODEC_ACC = 0.05
 DELTA_ROUNDS = 34  # past one ring lap (R = 33): the base refresh runs
 
-# HBM bandwidth by card name (NVIDIA data sheets); f32 CUDA-core peak
+# K5 vs its plain version: f32 sums in other orders (rtol 1e-4); bf16: both
+# compute in f32 and round the output once, so an element differs by at most
+# one bf16 ulp (2^-8 relative, 2^-7 just above a power of two)
+ATTN_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (8e-3, 1e-5)}
+# K6 vs its plain version: the same f32 recurrence, exp and the 16-term sums
+# in other orders; atol relative to the largest |y|
+SCAN_RTOL, SCAN_ATOL_REL = 1e-4, 1e-5
+# LM path, in units of the largest |logit|: card vs CPU at f32 (the same f32
+# maths, cuBLAS vs CPU matmuls, 2 layers); at bf16 (two chains of bf16
+# roundings: the port's bf16 prefill differs from its f32 prefill of the same
+# weights by 0.9% of the largest logit on the CPU at full width, 2 layers);
+# decode vs the full forward at f32 over 4 layers and 1536 positions
+LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+DECODE_TOL = 1e-4
+
+# HBM bandwidth by card name (NVIDIA data sheets); f32 CUDA-core and bf16
+# dense tensor-core peaks (H100 SXM data sheet)
 HBM_BYTES_PER_S = (("H200", 4.8e12), ("H100 NVL", 3.9e12),
                    ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+
+# Hymba-1.5B serving shapes (configs/hymba_1p5b.py): the prefill's K5 and K6
+HYMBA_B, HYMBA_S, HYMBA_H, HYMBA_HKV, HYMBA_D, HYMBA_WINDOW = \
+    2, 4096, 25, 5, 64, 1024
+HYMBA_DI, HYMBA_N = 3200, 16
+# (S, window, dtype); the first is the prefill's
+ATTN_CASES = ((4096, 1024, "bfloat16"), (4096, 1024, "float32"),
+              (4096, 0, "bfloat16"), (4096, 0, "float32"),
+              (3001, 1024, "bfloat16"), (700, 1024, "float32"))
+SCAN_SEQS = (4096, 1001)  # the first is the prefill's
 
 SOURCES = {"fused_server": "src/repro_torch/csrc/weighted_agg.cu",
            "sq_dists": "src/repro_torch/csrc/weighted_agg.cu",
            "weighted_sum": "src/repro_torch/csrc/weighted_agg.cu",
-           "int8_sq_dists": "src/repro_torch/csrc/ring_codec.cu"}
+           "int8_sq_dists": "src/repro_torch/csrc/ring_codec.cu",
+           "flash_attention": "src/repro_torch/csrc/flash_attn.cu",
+           "selective_scan": "src/repro_torch/csrc/ssm_scan.cu"}
 TPU_KERNELS = {
     "fused_server": "src/repro/kernels/weighted_agg/kernel.py:131",
     "sq_dists": "src/repro/kernels/weighted_agg/kernel.py:208",
     "weighted_sum": "src/repro/kernels/weighted_agg/kernel.py:41",
     "int8_sq_dists": "src/repro/kernels/ring_codec/kernel.py:51",
+    "flash_attention": "src/repro/kernels/flash_attn/kernel.py:70",
+    "selective_scan": "src/repro/kernels/ssm_scan/kernel.py:51",
 }
 POLICIES = ("paper", "multiplicative", "fedbuff", "polynomial", "fedasync",
             "fedasync_constant", "fedasync_hinge", "fedasync_poly")
@@ -297,6 +342,221 @@ def int8_kernel_phase(torch, rc_ops, rc_ref, ops, rate: float):
         torch.cuda.empty_cache()
     return records
 
+def attn_pairs(s: int, window: int) -> int:
+    """Visible (query, key) pairs of one (b, h) under the causal band."""
+    if not window:
+        return s * (s + 1) // 2
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def flash_kernel_phase(torch, fa_ops, fa_ref, rate: float):
+    """Hold K5 against its plain version; returns per-case records."""
+    F = torch.nn.functional
+    b, h, hkv, d = HYMBA_B, HYMBA_H, HYMBA_HKV, HYMBA_D
+    records = {}
+    for s, window, dtype_name in ATTN_CASES:
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator(device="cuda").manual_seed(s + window)
+        q, k, v = (torch.randn(b, s, n, d, device="cuda", generator=g)
+                   .to(dtype) for n in (h, hkv, hkv))
+        out = fa_ops.flash_attention(q, k, v, window=window)
+        check(torch.equal(out, fa_ops.flash_attention(q, k, v, window=window)),
+              f"K5 not bit-identical at S={s} window={window} {dtype_name}")
+        want = fa_ref.flash_attention_ref(q, k, v, window=window)
+        rtol, atol = ATTN_TOL[dtype_name]
+        err = float((out.float() - want.float()).abs().max())
+        check(torch.allclose(out.float(), want.float(), rtol=rtol, atol=atol),
+              f"K5 vs plain at S={s} window={window} {dtype_name}: max abs "
+              f"err {err}")
+        del want
+        # yardstick: one PyTorch call for the same function, (B, H, S, D)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = fa_ref.band_mask(s, s, True, window, q.device)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        lib_err = float((library().transpose(1, 2).float() - out.float())
+                        .abs().max())
+        flops = 4 * d * attn_pairs(s, window) * b * h
+        nbytes = (2 * b * s * h + 2 * b * s * hkv) * d * q.element_size()
+        bytes_ms = nbytes / rate * 1e3
+        ops_ms = flops / (BF16_FLOPS if dtype == torch.bfloat16
+                          else F32_FLOPS) * 1e3
+        r = dict(
+            ms=time_ms(torch, lambda: fa_ops.flash_attention(
+                q, k, v, window=window), reps=10, warmup=2),
+            plain_ms=time_ms(torch, lambda: fa_ref.flash_attention_ref(
+                q, k, v, window=window), reps=3, warmup=1),
+            library_ms=time_ms(torch, library, reps=10, warmup=2),
+            max_abs_err=err, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        print(f"  flash_attention B={b} S={s:5d} H={h} Hkv={hkv} D={d} "
+              f"window={window:4d} {dtype_name:8s}: kernel {r['ms']:.4f} ms  "
+              f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} "
+              f"ms (vs kernel {lib_err:.3g})  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, {flops / 1e9:.2f} GFLOP, {nbytes:,d} B)  "
+              f"max_abs_err {err:.3g}")
+        records[(s, window, dtype_name)] = r
+        del q, k, v, out, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+    return records
+
+
+def scan_kernel_phase(torch, ss_ops, ss_ref, rate: float):
+    """Hold K6 against its plain version; returns per-S records."""
+    b, di, n = HYMBA_B, HYMBA_DI, HYMBA_N
+    records = {}
+    for s in SCAN_SEQS:
+        g = torch.Generator(device="cuda").manual_seed(s)
+        x = torch.randn(b, s, di, device="cuda", generator=g)
+        dt = torch.nn.functional.softplus(
+            torch.randn(b, s, di, device="cuda", generator=g) - 1.0)
+        bb, c = (torch.randn(b, s, n, device="cuda", generator=g)
+                 for _ in range(2))
+        a = -torch.exp(0.5 * torch.randn(di, n, device="cuda", generator=g))
+        args = (x, dt, bb, c, a)
+        y = ss_ops.selective_scan(*args)
+        check(torch.equal(y, ss_ops.selective_scan(*args)),
+              f"K6 not bit-identical at S={s}")
+        want = ss_ref.selective_scan_ref(*args)
+        err = float((y - want).abs().max())
+        check(torch.allclose(y, want, rtol=SCAN_RTOL,
+                             atol=SCAN_ATOL_REL * float(want.abs().max())),
+              f"K6 vs plain at S={s}: max abs err {err}")
+        nbytes = (3 * b * s * di + 2 * b * s * n + di * n) * 4
+        flops = 6 * b * s * di * n
+        bytes_ms = nbytes / rate * 1e3
+        ops_ms = flops / F32_FLOPS * 1e3
+        r = dict(
+            ms=time_ms(torch, lambda: ss_ops.selective_scan(*args), reps=10,
+                       warmup=2),
+            plain_ms=time_ms(torch, lambda: ss_ref.selective_scan_ref(*args),
+                             reps=2, warmup=1),
+            library_ms=None, max_abs_err=err, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        print(f"  selective_scan B={b} S={s:5d} di={di} N={n}: kernel "
+              f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library n/a  "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes:,d} B, "
+              f"{flops / 1e9:.2f} GFLOP)  max_abs_err {err:.3g}")
+        records[s] = r
+        del x, dt, bb, c, a, y, want
+        torch.cuda.empty_cache()
+    return records
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def lm_phase(torch, np, fa_ops, ss_ops, serve, get_arch, Model):
+    """The Hymba-1.5B serving path at full width; returns the prefill's K5
+    and K6 launch counts and its time."""
+    cfg = get_arch("hymba-1.5b").model
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (HYMBA_B, HYMBA_S))).cuda()
+
+    # (a) prefill_logits at full width and depth, bf16
+    t = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = model.param_count(params)
+    check(n_params == 1_662_264_000, f"Hymba param count {n_params}")
+    print(f"  Hymba-1.5B init on the card: {n_params:,d} params, "
+          f"{time.perf_counter() - t:.2f} s")
+    batch = {"tokens": tokens}
+    with torch.no_grad():
+        model.prefill_logits(params, batch)  # first call pays cuBLAS set-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa_ops.reset_launches()
+        ss_ops.reset_launches()
+        t = time.perf_counter()
+        logits = model.prefill_logits(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = [time.perf_counter() - t]
+        counts = {"flash_attention": fa_ops.flash_attention.launches,
+                  "selective_scan": ss_ops.selective_scan.launches}
+        peak = torch.cuda.max_memory_allocated()
+        for _ in range(2):
+            t = time.perf_counter()
+            model.prefill_logits(params, batch)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t)
+    check(counts == {"flash_attention": cfg.num_layers,
+                     "selective_scan": cfg.num_layers},
+          f"prefill launches {counts}")
+    check(tuple(logits.shape) == (HYMBA_B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "prefill logits")
+    toks = HYMBA_B * HYMBA_S
+    print(f"  prefill_logits B={HYMBA_B} S={HYMBA_S}, 32 layers, bf16: "
+          f"{', '.join(f'{x:.4f}' for x in prefill_s)} s -> "
+          f"{', '.join(f'{toks / x:,.0f}' for x in prefill_s)} tokens/s; "
+          f"peak device memory {peak / 2**30:.2f} GiB "
+          f"(params {n_params * 2 / 2**30:.2f} GiB); launches {counts}")
+    del model, params, logits
+    torch.cuda.empty_cache()
+
+    # (b) the same weights on the card and on the CPU: 2 layers, S = 512
+    for dtype in ("float32", "bfloat16"):
+        cfg2 = cfg.replace(num_layers=2, param_dtype=dtype,
+                           compute_dtype=dtype)
+        card = Model(cfg2, device="cuda")
+        p2 = card.init(torch.Generator(device="cuda").manual_seed(1))
+        with torch.no_grad():
+            got = card.prefill_logits(p2, {"tokens": tokens[:, :512]})
+            want = Model(cfg2, device="cpu").prefill_logits(
+                to_cpu(p2), {"tokens": tokens[:, :512].cpu()})
+        err = float((got.cpu().float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        print(f"  card vs CPU, 2 layers, S=512, {dtype}: max abs diff "
+              f"{err:.4g} of max |logit| {scale:.4g} (limit "
+              f"{LOGIT_TOL[dtype]} x max)")
+        check(err <= LOGIT_TOL[dtype] * scale, f"card vs CPU {dtype}: {err}")
+        del card, p2, got
+    torch.cuda.empty_cache()
+
+    # (c) decode against the full forward, 4 layers, f32, past the window
+    s_dec = 1536
+    cfg4 = cfg.replace(num_layers=4, param_dtype="float32",
+                       compute_dtype="float32")
+    m4 = Model(cfg4, device="cuda")
+    p4 = m4.init(torch.Generator(device="cuda").manual_seed(2))
+    tok = tokens[:1, :s_dec]
+    t = time.perf_counter()
+    with torch.no_grad():
+        full, _ = m4.apply(p4, {"tokens": tok})
+        cache = m4.init_cache(1, s_dec)
+        check(cache["kv"]["k"].shape[2] == cfg.attn_window, "ring length")
+        errs = []
+        for i in range(s_dec):
+            lg, cache = m4.decode_step(p4, cache, tok[:, i:i + 1], i)
+            errs.append((lg[:, 0] - full[:, i]).abs().max())
+        err = float(torch.stack(errs).max())
+    scale = float(full.abs().max())
+    print(f"  decode vs forward, 4 layers, f32, S={s_dec} (ring of "
+          f"{cfg.attn_window} wraps): max abs diff {err:.4g} of max |logit| "
+          f"{scale:.4g} (limit {DECODE_TOL} x max), "
+          f"{time.perf_counter() - t:.2f} s")
+    check(err <= DECODE_TOL * scale, f"decode vs forward: {err}")
+    del m4, p4, full, cache
+    torch.cuda.empty_cache()
+
+    # (d) the serving launcher at full depth, JAX's defaults
+    res = serve.main(["--arch", "hymba-1.5b", "--device", "cuda"])
+    ids = res["tokens"]
+    check(ids.shape == (4, 17) and ids.min() >= 0
+          and ids.max() < cfg.vocab_size, f"served ids {ids.shape}")
+    print(f"  serve.py (batch 4, prompt 32, gen 16): prefill "
+          f"{res['prefill_s']:.4f} s, decode {res['decode_tok_s']:.2f} "
+          f"tokens/s")
+    return counts, prefill_s
+
 
 def compare_runs(np, a, b, what: str) -> None:
     check(len(a.round_log) == len(b.round_log), f"{what}: round counts")
@@ -318,6 +578,7 @@ def compare_runs(np, a, b, what: str) -> None:
 
 
 def main() -> int:
+    started = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -334,16 +595,23 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.checkpoint import load_checkpoint, save_checkpoint
-    from repro_torch.configs import PAPER_FL
+    from repro_torch.configs import PAPER_FL, get_arch
     from repro_torch.configs.base import FLConfig
     from repro_torch.core import run_async, run_sync
     from repro_torch.core import version_store
     from repro_torch.core.server_pass import flatten_tree
+    from repro_torch.kernels.flash_attn import kernel as fa_kernel
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.flash_attn import ref as fa_ref
     from repro_torch.kernels.ring_codec import kernel as rc_kernel
     from repro_torch.kernels.ring_codec import ops as rc_ops
     from repro_torch.kernels.ring_codec import ref as rc_ref
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+    from repro_torch.kernels.ssm_scan import ops as ss_ops
+    from repro_torch.kernels.ssm_scan import ref as ss_ref
     from repro_torch.kernels.weighted_agg import kernel, ops, ref
-    from repro_torch.models import apply_lenet, init_lenet, lenet_loss
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, apply_lenet, init_lenet, lenet_loss
     from repro_torch.sim import get_scenario
     from repro_torch.sim.engine import (
         engine_state_from_tree,
@@ -363,9 +631,10 @@ def main() -> int:
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}; "
           f"HBM {rate / 1e12:.2f} TB/s")
 
-    # 2. build: one nvcc per source, started together
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    libraries = (kernel.LIBRARY, rc_kernel.LIBRARY)
+    libraries = (kernel.LIBRARY, rc_kernel.LIBRARY, fa_kernel.LIBRARY,
+                 ss_kernel.LIBRARY)
     with ThreadPoolExecutor(len(libraries)) as pool:
         built = list(pool.map(lambda lib: lib.build(), libraries))
     for lib in libraries:
@@ -560,22 +829,44 @@ def main() -> int:
     print("  resumed run == uninterrupted run: round log, history, final "
           "params and ring bit-identical")
 
-    # 7. records
+    # 7. K5 and K6 against their plain versions
+    t = time.perf_counter()
+    print("K5 / K6 phases (median of 10 kernel calls, CUDA events):")
+    attn_records = flash_kernel_phase(torch, fa_ops, fa_ref, rate)
+    scan_records = scan_kernel_phase(torch, ss_ops, ss_ref, rate)
+    print(f"  phase: {time.perf_counter() - t:.1f} s")
+
+    # 8. LM serving path, Hymba-1.5B at full width
+    t = time.perf_counter()
+    print("LM serving path: Hymba-1.5B")
+    lm_counts, prefill_s = lm_phase(torch, np, fa_ops, ss_ops, serve,
+                                    get_arch, Model)
+    k5 = attn_records[ATTN_CASES[0]]
+    k6 = scan_records[SCAN_SEQS[0]]
+    layers = lm_counts["flash_attention"]
+    print(f"  prefill share: K5 {layers} x {k5['ms']:.4f} ms, K6 {layers} x "
+          f"{k6['ms']:.4f} ms = {layers * (k5['ms'] + k6['ms']) / 1e3:.4f} s "
+          f"of {min(prefill_s):.4f} s")
+    print(f"  phase: {time.perf_counter() - t:.1f} s")
+
+    # 9. records
     launches = {"fused_server": fused_counts["fused_server"],
                 "sq_dists": batched_counts["sq_dists"],
                 "weighted_sum": batched_counts["weighted_sum"],
-                "int8_sq_dists": int8_counts["int8_sq_dists"]}
-    records[("int8_sq_dists",) + MAIN_SHAPE] = int8_records[MAIN_SHAPE]
+                "int8_sq_dists": int8_counts["int8_sq_dists"], **lm_counts}
+    main_records = {name_k: records[(name_k,) + MAIN_SHAPE]
+                    for name_k in ("fused_server", "sq_dists", "weighted_sum")}
+    main_records.update(int8_sq_dists=int8_records[MAIN_SHAPE],
+                        flash_attention=k5, selective_scan=k6)
     kernels = []
-    for name_k in ("fused_server", "sq_dists", "weighted_sum",
-                   "int8_sq_dists"):
-        r = records[(name_k,) + MAIN_SHAPE]
+    for name_k, r in main_records.items():
         kernels.append({
             "name": name_k, "route": "cuda", "source": SOURCES[name_k],
             "replaces": TPU_KERNELS[name_k], "launches": launches[name_k],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

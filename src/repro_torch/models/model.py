@@ -1,0 +1,144 @@
+"""Language model: embedding -> decoder stack -> LM head (port of the JAX
+package's ``models/model.py``).
+
+Params are plain dicts of tensors in the JAX package's layout (layers
+stacked on a leading axis), so ``models/convert.py`` carries them across
+and the tests compare both packages like with like. Every method is a
+function of (params, inputs); the decode cache is updated in place.
+
+Batch dict: ``{"tokens": (B, S) int}``. The VLM (``num_patches``),
+encoder-decoder and MoE configs raise ``NotImplementedError`` (ROADMAP
+Slice F); ``loss`` comes with LM training.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import blocks
+from repro_torch.models.layers import (
+    Init,
+    apply_norm,
+    dense_init,
+    dtype_of,
+    embed_init,
+    make_norm_params,
+    sinusoidal_positions,
+)
+from repro_torch.utils.device import DeviceLike, resolve_device
+
+Params = Dict[str, Any]
+
+
+class Model:
+    """One config's model on one device (``"cuda"`` unless the caller asks
+    for the CPU; raises without a card)."""
+
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = "cuda"):
+        blocks.check_ported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    # ------------------------------------------------------------------ init
+    def init(self, generator: Optional[torch.Generator]) -> Params:
+        """Random params with the JAX package's distributions, drawn from
+        ``generator`` (on its own device) and placed on the model's device.
+        ``generator=None`` gives ``meta`` tensors: shapes only."""
+        cfg = self.cfg
+        init = Init(generator, self.device)
+        dtype = dtype_of(cfg.param_dtype)
+        p: Params = {
+            "embed": embed_init(init, cfg.vocab_size, cfg.d_model, dtype),
+            "final_norm": make_norm_params(cfg, cfg.d_model, init),
+            "layers": blocks.init_stack(init, cfg, cfg.num_layers),
+        }
+        if not cfg.tie_embeddings:
+            p["lm_head"] = dense_init(init, cfg.d_model, cfg.vocab_size, dtype)
+        return p
+
+    # ------------------------------------------------------------- embedding
+    def _scale_embed(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.family == "dense" and cfg.tie_embeddings:
+            # gemma-style input scaling, in the embedding's dtype
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                                 device=x.device)
+        return x
+
+    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = self._scale_embed(params["embed"][tokens])
+        if not cfg.rope_theta:
+            pos = torch.arange(tokens.shape[1], device=tokens.device)
+            x = x + sinusoidal_positions(pos, cfg.d_model)[None].to(x.dtype)
+        return x.to(dtype_of(cfg.compute_dtype))
+
+    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = apply_norm(cfg, params["final_norm"], x)
+        if cfg.tie_embeddings:
+            return x @ params["embed"].T
+        return x @ params["lm_head"]
+
+    # --------------------------------------------------------- full sequence
+    def hidden(self, params: Params, batch: Dict[str, torch.Tensor],
+               window: Optional[int] = None):
+        """Full-sequence forward without the LM head. Returns
+        (hidden (B, S, d), aux_loss)."""
+        x = self._embed(params, batch["tokens"])
+        return blocks.run_stack_train(self.cfg, params["layers"], x,
+                                      window=window)
+
+    def apply(self, params: Params, batch: Dict[str, torch.Tensor],
+              window: Optional[int] = None):
+        """Full-sequence forward. Returns (logits (B, S, V), aux_loss)."""
+        x, aux = self.hidden(params, batch, window=window)
+        return self._logits(params, x), aux
+
+    def prefill_logits(self, params: Params, batch: Dict[str, torch.Tensor],
+                       window: Optional[int] = None) -> torch.Tensor:
+        """Serving prefill: last-token logits (B, 1, V) only; the (B, S, V)
+        logits are never built (the LM head sees one position)."""
+        x, _ = self.hidden(params, batch, window=window)
+        return self._logits(params, x[:, -1:])
+
+    # ------------------------------------------------------------------ serve
+    def init_cache(self, batch: int, cache_len: int) -> Params:
+        """Layer-stacked decode cache (leading axis L) on the model's device:
+        a ring KV cache of ``min(cache_len, attn_window)`` slots under SWA,
+        the SSM state and conv tail for SSM layers."""
+        cfg = self.cfg
+        return blocks.init_stack_cache(cfg, cfg.num_layers, batch, cache_len,
+                                       dtype_of(cfg.compute_dtype),
+                                       self.device)
+
+    def decode_step(self, params: Params, cache: Params, tokens: torch.Tensor,
+                    pos: int):
+        """tokens: (B, 1) int; pos: the tokens' position. Returns (logits
+        (B, 1, V), cache), the cache updated in place."""
+        cfg = self.cfg
+        x = self._scale_embed(params["embed"][tokens])
+        if not cfg.rope_theta:
+            at = torch.full((1,), pos, device=tokens.device)
+            x = x + sinusoidal_positions(at, cfg.d_model)[None].to(x.dtype)
+        x = x.to(dtype_of(cfg.compute_dtype))
+        x = blocks.run_stack_decode(cfg, params["layers"], x, cache, pos)
+        return self._logits(params, x), cache
+
+    # ------------------------------------------------------------- utilities
+    def param_count(self, params: Optional[Params] = None) -> int:
+        if params is None:
+            params = self.init(None)
+
+        def count(t) -> int:
+            if isinstance(t, dict):
+                return sum(count(v) for v in t.values())
+            return t.numel()
+
+        return count(params)
+
+
+def build_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> Model:
+    return Model(cfg, device)

@@ -9,18 +9,27 @@ nothing of JAX, so on a machine with a card and no JAX it runs as
 Tolerances: kernel vs plain version rtol 1e-4 (both sum f32 terms, in
 different orders); the engine on the card vs on the CPU rtol 1e-3 on the
 round log and atol 1e-5 on the params (cuDNN vs CPU convolutions, with TF32
-off, over 3 rounds).
+off, over 3 rounds). K5 at bf16: kernel and plain version both compute in
+f32 and round the output once, so they differ by at most one bf16 ulp
+(rtol 8e-3). The 2-layer full-width Hymba prefill on the card vs on the CPU
+at f32: atol 1e-4 times the largest logit (the same f32 maths, cuBLAS vs
+CPU matmuls, over 2 layers).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import run_async
+from repro_torch.kernels.flash_attn import ops as fa_ops
+from repro_torch.kernels.flash_attn import ref as fa_ref
 from repro_torch.kernels.ring_codec import ops as rc_ops
 from repro_torch.kernels.ring_codec import ref as rc_ref
+from repro_torch.kernels.ssm_scan import ops as ss_ops
+from repro_torch.kernels.ssm_scan import ref as ss_ref
 from repro_torch.kernels.weighted_agg import ops, ref
-from repro_torch.models import init_lenet, lenet_loss
+from repro_torch.models import Model, init_lenet, lenet_loss
 from repro_torch.sim.scenarios import get_scenario
 
 POLICIES = ("paper", "multiplicative", "fedbuff", "polynomial", "fedasync",
@@ -164,3 +173,80 @@ def test_codec_engine_on_card_matches_cpu(cuda, codec):
         for key, v in leaves.items():
             torch.testing.assert_close(runs["cuda"].final_params[layer][key]
                                        .cpu(), v, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,h,hkv,d,window", [
+    (1, 25, 5, 64, 1024),     # one token
+    (200, 25, 5, 64, 64),     # ragged S, window, n_rep 5
+    (333, 4, 4, 32, 0),       # ragged S, causal, n_rep 1
+    (512, 5, 1, 64, 1024),    # window wider than S
+    (130, 8, 2, 128, 48),     # D = 128, ragged, window not a tile multiple
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, s, h, hkv, d,
+                                              window):
+    g = torch.Generator().manual_seed(s + h + d)
+    q = torch.randn(2, s, h, d, generator=g).to(cuda, dtype)
+    k = torch.randn(2, s, hkv, d, generator=g).to(cuda, dtype)
+    v = torch.randn(2, s, hkv, d, generator=g).to(cuda, dtype)
+    fa_ops.reset_launches()
+    out = fa_ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = fa_ref.flash_attention_ref(q, k, v, window=window)
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else \
+        dict(rtol=8e-3, atol=1e-5)
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,di,n", [(2, 64, 3200, 16), (1, 333, 100, 16),
+                                      (3, 37, 70, 8), (1, 1, 64, 4),
+                                      (2, 100, 130, 32)])
+def test_selective_scan_kernel_matches_plain(cuda, b, s, di, n):
+    g = torch.Generator().manual_seed(b * 1000 + s + di + n)
+    x = torch.randn(b, s, di, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, di, generator=g) - 1)
+    bb = torch.randn(b, s, n, generator=g)
+    c = torch.randn(b, s, n, generator=g)
+    a = -torch.exp(0.5 * torch.randn(di, n, generator=g))
+    args = [t.to(cuda) for t in (x, dt, bb, c, a)]
+    ss_ops.reset_launches()
+    y = ss_ops.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ss_ops.selective_scan.launches == 1
+    want = ss_ref.selective_scan_ref(*args)
+    torch.testing.assert_close(y, want, rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_hymba_full_width_prefill_card_matches_cpu(cuda):
+    """Hymba-1.5B at full width, 2 layers, f32, S = 512: K5 and K6 on the
+    card against their plain versions on the CPU, through prefill_logits."""
+    cfg = get_arch("hymba-1.5b").model.replace(
+        num_layers=2, param_dtype="float32", compute_dtype="float32")
+    card = Model(cfg, device="cuda")
+    params = card.init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 512)))
+    fa_ops.reset_launches()
+    ss_ops.reset_launches()
+    with torch.no_grad():
+        got = card.prefill_logits(params, {"tokens": tokens.to(cuda)})
+        torch.cuda.synchronize()
+        assert (fa_ops.flash_attention.launches,
+                ss_ops.selective_scan.launches) == (2, 2)
+        want = Model(cfg, device="cpu").prefill_logits(_to_cpu(params),
+                                                      {"tokens": tokens})
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()

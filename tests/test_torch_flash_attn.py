@@ -1,0 +1,127 @@
+"""The port's K5 wrapper and plain version against the JAX package's.
+
+On the CPU the port's ``ops.flash_attention`` runs its plain version
+(``ref.py``), which takes grouped-query K/V as the port's attention makes
+them; the JAX side runs its Pallas kernel in interpret mode and its jnp
+reference, as the JAX package's own tests do, on K/V expanded to every
+query head (``np.repeat`` over the head axis is the JAX package's
+``_repeat_kv`` mapping).
+
+Tolerances: f32 rtol/atol 2e-5 (the same f32 maths, summed in other
+orders; the JAX package's own kernel-vs-reference tolerance). bf16: both
+compute in f32 and round the output to bf16 once, so an element differs by
+at most one bf16 ulp (2^-8 relative, 2^-7 just above a power of two):
+rtol 8e-3, atol 1e-5.
+
+The CUDA kernel is held against the plain version on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attn.ops import flash_attention as j_flash
+from repro.kernels.flash_attn.ref import attention_ref as j_ref
+from repro_torch.kernels.flash_attn import ops as tops
+from repro_torch.kernels.flash_attn import ref as tref
+
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=8e-3, atol=1e-5)}
+NP_DTYPE = {"float32": np.float32, "bfloat16": ml_dtypes.bfloat16}
+TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _case(b, s, h, hkv, d, dtype, seed=0):
+    rng = np.random.default_rng(seed + 97 * s + 13 * h + d)
+    q = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, s, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(b, s, hkv, d)).astype(np.float32)
+    return [a.astype(NP_DTYPE[dtype]) for a in (q, k, v)]
+
+
+def _torch(a, dtype):
+    return torch.from_numpy(a.astype(np.float32)).to(TORCH_DTYPE[dtype])
+
+
+def _jax_both(q, k, v, n_rep, causal, window, block):
+    """JAX kernel (interpret mode) and jnp reference on expanded K/V."""
+    ke, ve = np.repeat(k, n_rep, axis=2), np.repeat(v, n_rep, axis=2)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(ke), jnp.asarray(ve)
+    kern = j_flash(jq, jk, jv, causal=causal, window=window, use_kernel=True,
+                   interpret=True, block_q=block, block_k=block)
+    b, s, h, d = q.shape
+
+    def bh(x):
+        return x.transpose(0, 2, 1, 3).reshape(b * h, s, d)
+
+    ref = j_ref(bh(jq), bh(jk), bh(jv), causal=causal, window=window)
+    ref = np.asarray(ref).reshape(b, h, s, d).transpose(0, 2, 1, 3)
+    return np.asarray(kern, np.float32), np.asarray(ref, np.float32)
+
+
+# (b, s, h, hkv, d, causal, window, block)
+CASES = [
+    (2, 64, 4, 4, 32, True, 0, 32),      # causal, n_rep 1
+    (1, 128, 5, 1, 64, True, 0, 64),     # causal, n_rep 5
+    (2, 96, 10, 2, 32, True, 32, 32),    # window, n_rep 5
+    (1, 128, 4, 4, 64, True, 48, 64),    # window not a block multiple
+    (1, 256, 2, 2, 32, True, 64, 128),   # window, S = 256
+    (1, 100, 5, 1, 64, True, 24, 64),    # ragged S (JAX pads), window
+    (2, 64, 4, 2, 32, False, 0, 32),     # bidirectional
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,hkv,d,causal,window,block", CASES)
+def test_plain_matches_jax(b, s, h, hkv, d, causal, window, block, dtype):
+    q, k, v = _case(b, s, h, hkv, d, dtype)
+    want_kernel, want_ref = _jax_both(q, k, v, h // hkv, causal, window,
+                                      block)
+    tq, tk, tv = (_torch(a, dtype) for a in (q, k, v))
+    got_ref = tref.flash_attention_ref(tq, tk, tv, causal=causal,
+                                       window=window)
+    got_ops = tops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got_ops.dtype == TORCH_DTYPE[dtype]
+    assert got_ops.shape == (b, s, h, d)
+    assert torch.equal(got_ops, got_ref)
+    for want in (want_kernel, want_ref):
+        np.testing.assert_allclose(got_ops.float().numpy(), want,
+                                   **TOL[dtype])
+
+
+def test_window_wider_than_sequence_is_plain_causal():
+    q, k, v = (_torch(a, "float32") for a in _case(1, 40, 4, 2, 32,
+                                                   "float32"))
+    torch.testing.assert_close(
+        tops.flash_attention(q, k, v, window=1024),
+        tops.flash_attention(q, k, v, window=0), rtol=0, atol=0)
+
+
+def test_cpu_wrapper_launches_no_kernel():
+    q, k, v = (_torch(a, "float32") for a in _case(1, 16, 2, 1, 32,
+                                                   "float32"))
+    tops.reset_launches()
+    tops.flash_attention(q, k, v)
+    assert tops.flash_attention.launches == 0
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "gqa", "dtype", "layout",
+                                 "window", "seq"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    q = torch.zeros(1, 8, 4, 32)
+    k = v = torch.zeros(1, 8, 2, 32)
+    if bad == "head_dim":
+        q, k, v = q[..., :16], k[..., :16], v[..., :16]
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    elif bad == "gqa":
+        k = v = torch.zeros(1, 8, 3, 32)
+    elif bad == "dtype":
+        q = q.half()
+    elif bad == "layout":
+        q = torch.zeros(1, 4, 8, 32).transpose(1, 2)
+    elif bad == "seq":
+        k = v = torch.zeros(1, 9, 2, 32)
+    with pytest.raises((ValueError, TypeError)):
+        tops.flash_attention(q, k, v, window=-1 if bad == "window" else 0)

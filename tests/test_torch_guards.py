@@ -12,10 +12,18 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs import get_arch, smoke_variant
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import run_async, run_sync
 from repro_torch.core.version_store import build_ring
-from repro_torch.models import init_lenet, lenet_loss, params_from_jax
+from repro_torch.launch import serve
+from repro_torch.models import (
+    Model,
+    init_lenet,
+    lenet_loss,
+    lm_params_from_jax,
+    params_from_jax,
+)
 from repro_torch.sim.scenarios import get_scenario
 from repro_torch.utils.device import resolve_device
 
@@ -45,7 +53,10 @@ def test_port_imports_no_jax_and_no_repro(path):
 
 def test_import_pulls_in_neither_jax_nor_repro():
     code = ("import sys, repro_torch.core, repro_torch.sim.engine, "
-            "repro_torch.sim.legacy, repro_torch.models; "
+            "repro_torch.sim.legacy, repro_torch.models, "
+            "repro_torch.models.model, repro_torch.launch.serve, "
+            "repro_torch.kernels.flash_attn.ops, "
+            "repro_torch.kernels.ssm_scan.ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code],
@@ -89,3 +100,14 @@ def test_unported_engines_name_their_slice():
                       device="cpu")
     with pytest.raises(NotImplementedError, match="Slice E"):
         build_ring(params, fl, mesh=object())
+
+
+def test_lm_entry_points_default_to_cuda_and_raise(no_cuda):
+    cfg = smoke_variant(get_arch("hymba-1.5b").model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "hymba-1.5b", "--smoke", "--gen", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm_params_from_jax({"w": [1.0]})
+    assert Model(cfg, device="cpu").device == torch.device("cpu")
