@@ -14,8 +14,9 @@
 // expanded head kvh * n_rep + r to kv head kvh, so head h reads h / n_rep and
 // the repeat is never built), key j visible to query i where
 // (!causal || i >= j) && (window <= 0 || j > i - window). Scores, running
-// max m, running sum l and the accumulator are f32; masked scores are -1e30
-// and their p is 0; l is floored at 1e-20; o is written in q's dtype.
+// max m, running sum l and the accumulator are f32; masked scores count as
+// -inf (the Pallas body's -1e30) and their p is 0; l is floored at 1e-20; o
+// is written in q's dtype.
 //
 // Bound on an H100 SXM at the serving path's shape (Hymba-1.5B prefill, B = 2,
 // S = 4096, H = 25, Hkv = 5, D = 64, window 1024, bf16): operations. The
@@ -23,36 +24,80 @@
 // B * H = 46.98 GFLOP, 47.5 us at 989 TFLOP/s (bf16 dense), against 62.9 MB
 // of q, k, v, o (18.8 us at 3.35 TB/s).
 //
-// Design (first, simple version: right before fast). One block per (query
-// tile of kBlockQ = 64 rows, head, batch); one thread per query row, holding
-// its scaled q row and its f32 accumulator in registers. K/V tiles of kBlockK
-// rows are staged in shared memory as f32 and read by all threads of the
-// block at the same address (a broadcast). Products run on the CUDA cores
-// in f32; wgmma, TMA and warp specialisation are later work. Tiles wholly
-// outside [q0 - window + 1, q0 + kBlockQ - 1] are never loaded, so a window
-// of 1024 at S = 4096 walks 17 of 64 kv tiles per query tile (the TPU kernel
-// walks all of them and masks); inside a tile a thread skips each chunk of
-// kChunk keys it cannot see. Ragged S is masked in-kernel: rows past S load
-// zeros and are never visible, query rows past S are not written.
+// Two instances, picked by the input type alone:
 //
-// Online softmax, per row and per chunk of kChunk keys, in the Pallas body's
-// order: m_new = max(m, max_j s_j); p_j = visible ? exp(s_j - m_new) : 0;
-// alpha = exp(m - m_new); l = alpha * l + sum_j p_j; acc = acc * alpha +
-// sum_j p_j v_j; at the end o = acc / max(l, 1e-20).
+// bf16: flash_fwd_sm90<D>, on the tensor cores. A CTA takes 128 query rows of
+// one (b, h): two consumer warpgroups of 64 rows each and one producer warp.
+// The producer loads the CTA's q tile once and then the (Bc = 64)-key K and V
+// tiles of the band with TMA (cp.async.bulk.tensor over 3-d tensor maps of
+// the (B, S, H*D) and (B, S, Hkv*D) views: rows past S arrive as zeros) into
+// a ring of 4 shared-memory stages, each guarded by a "full" mbarrier (bytes
+// landed) and an "empty" one (all 8 consumer warps done with it). Each
+// consumer warpgroup computes, per kv tile t:
+//   S_t = Q K_t^T   wgmma m64n64k16, Q and K from shared memory, K-major;
+//   online softmax on the S fragment: each thread holds two rows; row max by
+//                   partial maxima and the quad's shuffles; p = exp2(s *
+//                   scale * log2(e) - m), one FFMA and one exp2 per score;
+//                   the mask arithmetic runs only on tiles that cross the
+//                   diagonal, the window's lower edge or S;
+//   O += P_t V_t    wgmma m64nDk16, P from registers (the S fragment is
+//                   already wgmma's A-register layout), V from shared memory
+//                   read MN-major (the transpose bit).
+// The loop is software-pipelined inside the warpgroup: S_t and P_{t-1} V_{t-1}
+// go out together, the softmax of S_t runs while P_{t-1} V_{t-1} is still
+// on the tensor cores, and the accumulator is rescaled after that product
+// has landed; the two warpgroups overlap each other besides.
+// P is carried as two bf16 terms, P = P_hi + P_lo, and P V is computed for
+// both: one rounding of P to bf16 (2^-9 relative) moves outputs near zero by
+// more than the bf16 tolerance against the f32 plain version. P_hi is p
+// truncated (a byte permute), P_lo the exact remainder rounded to bf16, so
+// the pair is p within 2^-16 relative, unbiased (truncating P_lo as well
+// biases the sum low by up to 2^-14, which broke the bf16 tolerance on the
+// card). The tensor-core work is therefore 1.5x the 4 * D FLOP per
+// visible pair of the bound, on 64 x 64 tiles of the band.
+// Shared tiles use the swizzle that TMA writes and the wgmma descriptors
+// read: 128-byte for rows of 64 bf16 (D = 64; D = 128 as two 64-column
+// panels), 64-byte for D = 32. The band skip is per tile: the CTA walks only
+// the kv tiles of [q0 - window + 1, q0 + 127] (18 of 64 at window 1024, S =
+// 4096), and a warpgroup skips the products of a tile none of its rows can
+// see. Query tiles run longest-first (the grid's slowest axis walks them in
+// reverse), so a causal triangle's long tiles do not form the tail. No
+// atomics: launches are bit-identical.
 //
-// Shapes: D in {32, 64, 128} (a template parameter: the row lives in
-// registers; D = 128 spills part of it to local memory), bf16 or f32 inputs.
+// f32: flash_fwd_kernel<D>, the first design, on the CUDA cores (TF32
+// tensor cores would not keep the f32 parity checks). One block per (64
+// query rows, head, batch), one thread per query row holding its scaled q row
+// and its f32 accumulator in registers; K/V tiles staged in shared memory and
+// read as a broadcast; kv tiles outside the band never loaded; inside a tile
+// a thread skips each chunk of kChunk keys it cannot see. Online softmax per
+// chunk in the Pallas body's order: m_new = max(m, max_j s_j); p_j = visible ?
+// exp(s_j - m_new) : 0; alpha = exp(m - m_new); l = alpha * l + sum_j p_j;
+// acc = acc * alpha + sum_j p_j v_j; at the end o = acc / max(l, 1e-20).
+//
+// Both: D in {32, 64, 128} (the f32 instance holds a q row in registers and
+// spills part of it at D = 128); ragged S is masked in-kernel (rows past S
+// are never visible and never written).
 //
 // Interface: plain C, loaded with ctypes. fa_forward launches on the stream
-// it is given, allocates nothing and returns cudaGetLastError().
+// it is given, allocates nothing and returns cudaGetLastError() (or the
+// error of the tensor-map encode or of the shared-memory attribute). The
+// tensor maps come from cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint(ByVersion), so the library needs no -lcuda.
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -I csrc -o libflash_attn.so flash_attn.cu
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "hopper.cuh"
+
 namespace {
+
+// ---- f32: CUDA-core instance ---------------------------------------------
 
 constexpr int kBlockQ = 64;     // query rows per block, one per thread
 constexpr int kChunk = 16;      // keys per online-softmax update
@@ -63,22 +108,10 @@ struct KvTile {
   static constexpr int kRows = D <= 64 ? 64 : 32;  // K and V tiles: 32 KB
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kBlockQ)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int64_t seq,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int64_t seq,
                  int heads, int kv_heads, int causal, int64_t window,
                  float scale) {
   constexpr int kRows = KvTile<D>::kRows;
@@ -95,9 +128,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qr[D];
   float acc[D];
   if (active) {
-    const T* qrow = q + ((b * seq + qpos) * heads + h) * D;
+    const float* qrow = q + ((b * seq + qpos) * heads + h) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = to_f32(qrow[d]) * scale;
+    for (int d = 0; d < D; ++d) qr[d] = qrow[d] * scale;
   } else {
 #pragma unroll
     for (int d = 0; d < D; ++d) qr[d] = 0.f;
@@ -126,8 +159,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float vval = 0.f;
       if (kp < seq) {
         const int64_t off = ((b * seq + kp) * kv_heads + hk) * D + c;
-        kval = to_f32(k[off]);
-        vval = to_f32(v[off]);
+        kval = k[off];
+        vval = v[off];
       }
       ks[r][c] = kval;
       vs[r][c] = vval;
@@ -172,42 +205,448 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (active) {
     const float denom = fmaxf(l, 1e-20f);
-    T* orow = o + ((b * seq + qpos) * heads + h) * D;
+    float* orow = o + ((b * seq + qpos) * heads + h) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) orow[d] = from_f32<T>(acc[d] / denom);
+    for (int d = 0; d < D; ++d) orow[d] = acc[d] / denom;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int64_t batch, int64_t seq, int64_t heads, int64_t kv_heads,
-                   int causal, int64_t window, float scale, cudaStream_t stream) {
+// ---- bf16: tensor-core instance -------------------------------------------
+
+constexpr int kRowsWg = 64;                      // query rows per warpgroup
+constexpr int kConsumers = 2;                    // consumer warpgroups
+constexpr int kRowsCta = kRowsWg * kConsumers;   // query rows per CTA
+constexpr int kKeys = 64;                        // keys per kv tile (Bc)
+constexpr int kStages = 4;                       // K/V ring depth
+constexpr int kThreads = kConsumers * 128 + 32;  // + one producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Sm90 {
+  static constexpr int kPanelCols = D < 64 ? D : 64;      // columns per swizzle row
+  static constexpr int kPanels = D / kPanelCols;
+  static constexpr int kRowBytes = kPanelCols * 2;        // 128 or 64
+  static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 1 : 2;  // descriptor
+  static constexpr int kQBytes = kRowsWg * D * 2;         // one warpgroup's q
+  static constexpr int kTileBytes = kKeys * D * 2;        // one K or V tile
+  static constexpr int kSmem = 1024 /* alignment slack */ + kConsumers * kQBytes +
+                               2 * kStages * kTileBytes + (2 * kStages + 1) * 8;
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// -inf: a masked score, whose exp2 is p = 0
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the upper halves of two f32 words (each truncated to bf16), packed
+__device__ __forceinline__ uint32_t pack_upper(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+__device__ __forceinline__ float upper_f32(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffff0000u);
+}
+
+// S = Q K^T for one warpgroup: 64 query rows x 64 keys, over D in steps of 16.
+template <int D>
+__device__ __forceinline__ void mma_scores(float (&sc)[kKeys / 2], uint32_t q_addr,
+                                             uint32_t k_addr) {
+  using C = Sm90<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk * 16 % C::kPanelCols) * 2;
+    const uint32_t panel = kk * 16 / C::kPanelCols;
+    hopper::wgmma_ss(
+        sc,
+        hopper::gmma_desc(q_addr + panel * kRowsWg * C::kRowBytes + col, 16,
+                          8 * C::kRowBytes, C::kSwizzle),
+        hopper::gmma_desc(k_addr + panel * kKeys * C::kRowBytes + col, 16,
+                          8 * C::kRowBytes, C::kSwizzle),
+        kk > 0);
+  }
+}
+
+// O += P V for one warpgroup, P = P_hi + P_lo, over the tile's keys in steps
+// of 16; V is read MN-major.
+template <int D>
+__device__ __forceinline__ void mma_pv(float (&acc)[D / 2],
+                                         const uint32_t (&p_hi)[kKeys / 4],
+                                         const uint32_t (&p_lo)[kKeys / 4],
+                                         uint32_t v_addr) {
+  using C = Sm90<D>;
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    const uint64_t dv = hopper::gmma_desc(v_addr + kk * 16 * C::kRowBytes,
+                                          kKeys * C::kRowBytes, 8 * C::kRowBytes,
+                                          C::kSwizzle);
+    hopper::wgmma_rs(acc, p_hi[4 * kk], p_hi[4 * kk + 1], p_hi[4 * kk + 2],
+                     p_hi[4 * kk + 3], dv, 1);
+    hopper::wgmma_rs(acc, p_lo[4 * kk], p_lo[4 * kk + 1], p_lo[4 * kk + 2],
+                     p_lo[4 * kk + 3], dv, 1);
+  }
+}
+
+// Online softmax on one S fragment (two rows per thread: row_a in the
+// entries with bit 1 of the index clear, row_a + 8 in the others), in the
+// log2 domain: mask the raw scores when the tile is not wholly visible,
+// update the running max m (of scale * log2(e) * s) and this thread's share
+// of the running sum l, and leave p = exp2(s * scale_log2 - m) in sc, one
+// FFMA and one exp2 per score. Returns the rows' rescale factors
+// exp2(m_old - m_new) in alpha.
+template <int N>
+__device__ __forceinline__ void softmax_step(float (&sc)[N], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             float scale_log2, bool inside, int k0,
+                                             int col, int row_a, int seq, int causal,
+                                             int window) {
+  if (!inside) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int kpos = k0 + (j / 4) * 8 + col + (j & 1);
+      const int qpos = row_a + ((j & 2) ? 8 : 0);
+      const bool visible = kpos < seq && (!causal || kpos <= qpos) &&
+                           (window <= 0 || kpos > qpos - window);
+      sc[j] = visible ? sc[j] : neg_inf();
+    }
+  }
+  // row max: four partial maxima per row, then the quad's shuffles
+  float mx[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) mx[r][g] = neg_inf();
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    mx[(j >> 1) & 1][(j >> 2) & 3] = fmaxf(mx[(j >> 1) & 1][(j >> 2) & 3], sc[j]);
+  float neg_m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float v = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+    // scale_log2 > 0, so the max of the scaled scores is the scaled max
+    v = fmaxf(m[r], v * scale_log2);
+    alpha[r] = ex2(m[r] - v);  // both -1e30 (nothing seen yet): 1
+    m[r] = v;
+    neg_m[r] = -v;
+  }
+  float sum[2][4] = {};
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float p = ex2(fmaf(sc[j], scale_log2, neg_m[(j >> 1) & 1]));  // masked: 0
+    sc[j] = p;
+    sum[(j >> 1) & 1][(j >> 2) & 3] += p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = l[r] * alpha[r] + ((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
+}
+
+// p (f32) -> P_hi + P_lo (bf16 pairs) in wgmma's A-register order. P_hi is
+// p truncated to its upper 16 bits (a byte permute, no conversion unit);
+// the remainder p - P_hi is exact in f32 and below 2^-7 p, and P_lo is it
+// rounded to bf16, so P_hi + P_lo is p within 2^-16 relative, unbiased.
+template <int N>
+__device__ __forceinline__ void split_p(const float (&sc)[N], uint32_t (&p_hi)[N / 2],
+                                        uint32_t (&p_lo)[N / 2]) {
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) {
+    const float x0 = sc[2 * j], x1 = sc[2 * j + 1];
+    p_hi[j] = pack_upper(x0, x1);
+    p_lo[j] = pack_bf16(x0 - upper_f32(x0), x1 - upper_f32(x1));
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               __nv_bfloat16* __restrict__ o, int seq, int heads, int n_rep,
+               int causal, int window, float scale_log2) {
+  using C = Sm90<D>;
+  using namespace hopper;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // the swizzle patterns repeat every 1024 bytes of the shared address
+  uint8_t* sq = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* sk = sq + kConsumers * C::kQBytes;
+  uint8_t* sv = sk + kStages * C::kTileBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sv + kStages * C::kTileBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (int)(gridDim.z - 1 - blockIdx.z) * kRowsCta;  // longest first
+  const int hk = h / n_rep;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  // kv tiles of the CTA's band
+  const int q_last = min(q0 + kRowsCta, seq) - 1;
+  const int t_lo = (window > 0 ? max(0, q0 - window + 1) : 0) / kKeys;
+  const int t_hi = (causal ? q_last : seq - 1) / kKeys;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);
+    }
+    mbar_init(q_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers * 4) {
+    // producer: q once, then the band's K/V tiles through the ring
+    if (lane == 0) {
+      const int n_wg = min(kConsumers, (seq - q0 + kRowsWg - 1) / kRowsWg);
+      mbar_arrive_expect_tx(q_full, n_wg * C::kQBytes);
+      for (int g = 0; g < n_wg; ++g)
+        for (int p = 0; p < C::kPanels; ++p)
+          tma_load_3d(sq + g * C::kQBytes + p * kRowsWg * C::kRowBytes, &tm_q, q_full,
+                      h * D + p * C::kPanelCols, q0 + g * kRowsWg, b);
+      for (int t = t_lo, i = 0; t <= t_hi; ++t, ++i) {
+        const int s = i % kStages;
+        mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * C::kTileBytes);
+        for (int p = 0; p < C::kPanels; ++p) {
+          const int off = s * C::kTileBytes + p * kKeys * C::kRowBytes;
+          tma_load_3d(sk + off, &tm_k, &full[s], hk * D + p * C::kPanelCols,
+                      t * kKeys, b);
+          tma_load_3d(sv + off, &tm_v, &full[s], hk * D + p * C::kPanelCols,
+                      t * kKeys, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: query rows r0 .. r0 + 63; this thread holds rows
+  // row_a and row_a + 8 of the accumulator fragments
+  const int wg = warp / 4;
+  const int r0 = q0 + wg * kRowsWg;
+  const int row_a = r0 + (warp % 4) * 16 + lane / 4;
+  const int col = 2 * (lane % 4);  // this thread's first column in each 8
+  // this warpgroup's tiles [wt_lo, wt_hi] (none past S); it waits for and
+  // releases the CTA's other tiles without reading them
+  int wt_lo = t_hi + 1, wt_hi = t_hi;
+  if (r0 < seq) {
+    wt_lo = (window > 0 ? max(0, r0 - window + 1) : 0) / kKeys;
+    wt_hi = (causal ? min(r0 + kRowsWg, seq) - 1 : seq - 1) / kKeys;
+  }
+  const uint32_t q_addr = smem_addr(sq + wg * C::kQBytes);
+  auto stage = [&](int t) { return (t - t_lo) % kStages; };
+  auto wait_tile = [&](int t) {
+    mbar_wait(&full[stage(t)], ((t - t_lo) / kStages) & 1);
+  };
+  auto release = [&](int t) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage(t)]);  // this warp is done with it
+  };
+  auto inside = [&](int k0) {  // every (row, key) pair of the tile visible
+    return k0 + kKeys <= seq && (!causal || k0 + kKeys - 1 <= r0) &&
+           (window <= 0 || k0 > r0 + kRowsWg - 1 - window);
+  };
+
+  for (int t = t_lo; t < wt_lo; ++t) {
+    wait_tile(t);
+    release(t);
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // running max per row, log2 domain
+  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+  float alpha[2];
+  float sc[kKeys / 2];
+  uint32_t p_hi[kKeys / 4], p_lo[kKeys / 4];
+
+  if (wt_lo <= wt_hi) {
+    mbar_wait(q_full, 0);
+    // first tile: scores and softmax
+    wait_tile(wt_lo);
+    wgmma_fence();
+    mma_scores<D>(sc, q_addr, smem_addr(sk + stage(wt_lo) * C::kTileBytes));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax_step(sc, m, l, alpha, scale_log2, inside(wt_lo * kKeys), wt_lo * kKeys,
+                 col, row_a, seq, causal, window);
+    split_p(sc, p_hi, p_lo);
+    // steady state: tile t's scores run beside tile t-1's P V, and t's
+    // softmax runs while that P V finishes
+    for (int t = wt_lo + 1; t <= wt_hi; ++t) {
+      wait_tile(t);
+      wgmma_fence();
+      mma_scores<D>(sc, q_addr, smem_addr(sk + stage(t) * C::kTileBytes));
+      wgmma_commit();
+      mma_pv<D>(acc, p_hi, p_lo, smem_addr(sv + stage(t - 1) * C::kTileBytes));
+      wgmma_commit();
+      wgmma_wait<1>();  // the scores
+      fence_regs(sc);
+      softmax_step(sc, m, l, alpha, scale_log2, inside(t * kKeys), t * kKeys, col,
+                   row_a, seq, causal, window);
+      wgmma_wait<0>();  // P V of tile t - 1
+      fence_regs(acc);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      release(t - 1);
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+      split_p(sc, p_hi, p_lo);
+    }
+    wgmma_fence();
+    mma_pv<D>(acc, p_hi, p_lo, smem_addr(sv + stage(wt_hi) * C::kTileBytes));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    release(wt_hi);
+  }
+
+  for (int t = max(wt_hi + 1, wt_lo); t <= t_hi; ++t) {
+    wait_tile(t);
+    release(t);
+  }
+  if (wt_lo > wt_hi) return;  // no rows below S
+
+  // o = acc / max(l, 1e-20), rows below S only
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-20f);
+  }
+  const int64_t stride = (int64_t)heads * D;
+  __nv_bfloat16* o_a = o + ((int64_t)b * seq + row_a) * stride + (int64_t)h * D + col;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row_a + 8 * r < seq)
+        *reinterpret_cast<uint32_t*>(o_a + 8 * r * stride + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * r] / l[r], acc[4 * j + 2 * r + 1] / l[r]);
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int64_t batch, int64_t seq, int64_t heads, int64_t kv_heads,
+                       int causal, int64_t window, float scale, cudaStream_t stream) {
   const dim3 grid((unsigned)((seq + kBlockQ - 1) / kBlockQ), (unsigned)heads,
                   (unsigned)batch);
-  flash_fwd_kernel<T, D><<<grid, kBlockQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), seq, (int)heads, (int)kv_heads, causal, window, scale);
+  flash_fwd_kernel<D><<<grid, kBlockQ, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), seq, (int)heads,
+      (int)kv_heads, causal, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dim(const void* q, const void* k, const void* v, void* o,
-                       int64_t batch, int64_t seq, int64_t heads, int64_t kv_heads,
-                       int64_t dim, int causal, int64_t window, float scale,
-                       cudaStream_t stream) {
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Tensor map over a contiguous (batch, seq, cols) bf16 array; boxes of
+// (panel_cols, rows, 1) with the swizzle the wgmma descriptors expect.
+bool tensor_map(CUtensorMap* map, const void* ptr, int64_t batch, int64_t seq,
+                int64_t cols, int panel_cols, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)(cols * seq) * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)panel_cols, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                panel_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                      : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        int64_t batch, int64_t seq, int64_t heads, int64_t kv_heads,
+                        int causal, int64_t window, float scale, cudaStream_t stream) {
+  using C = Sm90<D>;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!tensor_map(&tm_q, q, batch, seq, heads * D, C::kPanelCols, kRowsWg) ||
+      !tensor_map(&tm_k, k, batch, seq, kv_heads * D, C::kPanelCols, kKeys) ||
+      !tensor_map(&tm_v, v, batch, seq, kv_heads * D, C::kPanelCols, kKeys))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)heads, (unsigned)batch,
+                  (unsigned)((seq + kRowsCta - 1) / kRowsCta));
+  flash_fwd_sm90<D><<<grid, kThreads, C::kSmem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), (int)seq, (int)heads,
+      (int)(heads / kv_heads), causal, (int)window, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// Calls f(std::integral_constant<int, D>) for D = dim in {32, 64, 128}.
+template <typename F>
+cudaError_t by_dim(int64_t dim, F f) {
   switch (dim) {
     case 32:
-      return launch<T, 32>(q, k, v, o, batch, seq, heads, kv_heads, causal, window,
-                           scale, stream);
+      return f(std::integral_constant<int, 32>{});
     case 64:
-      return launch<T, 64>(q, k, v, o, batch, seq, heads, kv_heads, causal, window,
-                           scale, stream);
+      return f(std::integral_constant<int, 64>{});
     case 128:
-      return launch<T, 128>(q, k, v, o, batch, seq, heads, kv_heads, causal, window,
-                            scale, stream);
+      return f(std::integral_constant<int, 128>{});
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+cudaError_t forward(const void* q, const void* k, const void* v, void* o,
+                    int64_t batch, int64_t seq, int64_t heads, int64_t kv_heads,
+                    int64_t dim, int dtype, int causal, int64_t window, float scale,
+                    cudaStream_t s) {
+  if (dtype == 0)
+    return by_dim(dim, [&](auto d) {
+      return launch_f32<decltype(d)::value>(q, k, v, o, batch, seq, heads, kv_heads,
+                                            causal, window, scale, s);
+    });
+  if (dtype == 1)
+    return by_dim(dim, [&](auto d) {
+      return launch_bf16<decltype(d)::value>(q, k, v, o, batch, seq, heads, kv_heads,
+                                             causal, window, scale, s);
+    });
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -220,20 +659,19 @@ const char* fa_error_string(int code) {
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaErrorInvalidValue for a
 // shape or type the kernel does not take (the Python wrapper checks first).
+// The bf16 instance needs 16-byte aligned q, k, v (TMA), S below 2^23 (the
+// grid's query-tile axis) and a window below 2^31.
 int fa_forward(const void* q, const void* k, const void* v, void* o, int64_t batch,
                int64_t seq, int64_t heads, int64_t kv_heads, int64_t dim, int dtype,
                int causal, int64_t window, float scale, void* stream) {
   if (batch < 1 || seq < 1 || kv_heads < 1 || heads % kv_heads || heads > 65535 ||
       batch > 65535)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_dim<float>(q, k, v, o, batch, seq, heads, kv_heads, dim, causal,
-                                  window, scale, s);
-  if (dtype == 1)
-    return (int)launch_dim<__nv_bfloat16>(q, k, v, o, batch, seq, heads, kv_heads, dim,
-                                          causal, window, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && ((seq + kRowsCta - 1) / kRowsCta > 65535 || window > 0x7fffffff ||
+                     ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16))
+    return (int)cudaErrorInvalidValue;
+  return (int)forward(q, k, v, o, batch, seq, heads, kv_heads, dim, dtype, causal,
+                      window, scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

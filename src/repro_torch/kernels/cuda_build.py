@@ -4,9 +4,10 @@ Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 at first use and loaded with ``ctypes``. The build lands in
 ``build/repro_torch/`` at the root of the checkout (listed in
 ``.gitignore``), named by a hash of the source, the headers of ``csrc/``
-and the flags, so a changed source rebuilds and concurrent first uses
-(``pytest -n 6``) never see a half-written library: each builds to a
-private temp name, then renames it into place atomically.
+and the flags (the common ones and the library's own), so a changed
+source rebuilds and concurrent first uses (``pytest -n 6``) never see a
+half-written library: each builds to a private temp name, then renames it
+into place atomically.
 
 Nothing here runs at import time: the CPU tests import the kernel modules
 on machines without ``nvcc`` or a card.
@@ -54,11 +55,14 @@ class CudaLibrary:
     and the library exports ``<prefix>_error_string`` to name it.
     """
 
-    def __init__(self, name: str, signatures: Signatures, error_fn: str):
+    def __init__(self, name: str, signatures: Signatures, error_fn: str,
+                 extra_flags: Tuple[str, ...] = ()):
         self.name = name
         self.source = CSRC / f"{name}.cu"
         self.signatures = signatures
         self.error_fn = error_fn
+        self.flags = NVCC_FLAGS + tuple(extra_flags)
+        self.ptxas_info: List[str] = []  # ptxas's report, from a build here
         self._lock = threading.Lock()
         self._lib = None
 
@@ -67,7 +71,7 @@ class CudaLibrary:
         digest = hashlib.sha256(self.source.read_bytes())
         for header in sorted(CSRC.glob("*.cuh")):
             digest.update(header.read_bytes())
-        digest.update(" ".join(NVCC_FLAGS).encode())
+        digest.update(" ".join(self.flags).encode())
         return BUILD_DIR / f"lib{self.name}_{digest.hexdigest()[:16]}.so"
 
     def build(self) -> Path:
@@ -81,12 +85,13 @@ class CudaLibrary:
         os.close(fd)
         try:
             proc = subprocess.run(
-                [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+                [nvcc(), *self.flags, "-I", str(CSRC), "-o", tmp,
                  str(self.source)], capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed ({proc.returncode}) on {self.source}:\n"
                     f"{proc.stdout}\n{proc.stderr}")
+            self.ptxas_info = ptxas_report(proc.stdout + proc.stderr)
             os.replace(tmp, out)
         finally:
             if os.path.exists(tmp):
@@ -111,6 +116,14 @@ class CudaLibrary:
         if code != 0:
             err = getattr(lib, self.error_fn)(code).decode()
             raise RuntimeError(f"{what} launch failed: {err} ({code})")
+
+
+def ptxas_report(log: str) -> List[str]:
+    """The lines of ``-Xptxas -v`` output that name a kernel and give its
+    registers, shared memory and spills."""
+    keep = ("Compiling entry function", "Used", "spill stores")
+    return [line.strip() for line in log.splitlines()
+            if line.startswith("ptxas info") and any(k in line for k in keep)]
 
 
 def stream(t: torch.Tensor) -> int:

@@ -9,11 +9,13 @@ nothing of JAX, so on a machine with a card and no JAX it runs as
 Tolerances: kernel vs plain version rtol 1e-4 (both sum f32 terms, in
 different orders); the engine on the card vs on the CPU rtol 1e-3 on the
 round log and atol 1e-5 on the params (cuDNN vs CPU convolutions, with TF32
-off, over 3 rounds). K5 at bf16: kernel and plain version both compute in
-f32 and round the output once, so they differ by at most one bf16 ulp
-(rtol 8e-3). The 2-layer full-width Hymba prefill on the card vs on the CPU
-at f32: atol 1e-4 times the largest logit (the same f32 maths, cuBLAS vs
-CPU matmuls, over 2 layers).
+off, over 3 rounds). K5 at bf16: the plain version computes in f32 and
+rounds the output once; the kernel's products run on the tensor cores with
+P carried as two bf16 terms (within 2^-16 relative) and f32 sums, so the
+two differ by at most one bf16 ulp of the output (rtol 8e-3). The 2-layer
+full-width Hymba prefill on the card vs on the CPU at f32: atol 1e-4 times
+the largest logit (the same f32 maths, cuBLAS vs CPU matmuls, over 2
+layers).
 """
 import numpy as np
 import pytest
@@ -177,24 +179,37 @@ def test_codec_engine_on_card_matches_cpu(cuda, codec):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,h,hkv,d,window", [
-    (1, 25, 5, 64, 1024),     # one token
-    (200, 25, 5, 64, 64),     # ragged S, window, n_rep 5
-    (333, 4, 4, 32, 0),       # ragged S, causal, n_rep 1
-    (512, 5, 1, 64, 1024),    # window wider than S
-    (130, 8, 2, 128, 48),     # D = 128, ragged, window not a tile multiple
+@pytest.mark.parametrize("b,s,h,hkv,d,window", [
+    (2, 1, 25, 5, 64, 1024),     # one token
+    (2, 200, 25, 5, 64, 64),     # ragged S, window, n_rep 5
+    (2, 333, 4, 4, 32, 0),       # ragged S, causal, n_rep 1
+    (2, 512, 5, 1, 64, 1024),    # window wider than S
+    (2, 130, 8, 2, 128, 48),     # D = 128, ragged, window not a tile multiple
+    # S on each side of the kv tile (64 keys) and the query tile (128 rows)
+    (2, 63, 25, 5, 64, 0),
+    (2, 64, 4, 4, 32, 64),       # window = the kv tile
+    (2, 65, 5, 1, 64, 1024),
+    (2, 127, 8, 2, 128, 0),
+    (2, 129, 25, 5, 64, 128),    # window = the query tile
+    (2, 300, 4, 2, 64, 1),       # window 1: the diagonal alone
+    (2, 200, 10, 2, 32, 96),     # D 32, 64, 128 with n_rep 5
+    (2, 257, 25, 5, 64, 1024),
+    (2, 190, 10, 2, 128, 0),
+    (1, 4096, 25, 5, 64, 1024),  # the Hymba-1.5B prefill's shape at B = 1
 ])
-def test_flash_attention_kernel_matches_plain(cuda, dtype, s, h, hkv, d,
+def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, h, hkv, d,
                                               window):
     g = torch.Generator().manual_seed(s + h + d)
-    q = torch.randn(2, s, h, d, generator=g).to(cuda, dtype)
-    k = torch.randn(2, s, hkv, d, generator=g).to(cuda, dtype)
-    v = torch.randn(2, s, hkv, d, generator=g).to(cuda, dtype)
+    q = torch.randn(b, s, h, d, generator=g).to(cuda, dtype)
+    k = torch.randn(b, s, hkv, d, generator=g).to(cuda, dtype)
+    v = torch.randn(b, s, hkv, d, generator=g).to(cuda, dtype)
     fa_ops.reset_launches()
     out = fa_ops.flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     assert fa_ops.flash_attention.launches == 1
     assert out.dtype == dtype and out.shape == q.shape
+    # no atomics: a second launch gives the same bits
+    assert torch.equal(out, fa_ops.flash_attention(q, k, v, window=window))
     want = fa_ref.flash_attention_ref(q, k, v, window=window)
     tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else \
         dict(rtol=8e-3, atol=1e-5)

@@ -14,7 +14,9 @@ at most one bf16 ulp (2^-8 relative, 2^-7 just above a power of two):
 rtol 8e-3, atol 1e-5.
 
 The CUDA kernel is held against the plain version on the card by
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``; its bf16 instance
+carries P as two bf16 terms, and a test here shows on the CPU why one is
+not enough.
 """
 import jax.numpy as jnp
 import ml_dtypes
@@ -89,6 +91,36 @@ def test_plain_matches_jax(b, s, h, hkv, d, causal, window, block, dtype):
     for want in (want_kernel, want_ref):
         np.testing.assert_allclose(got_ops.float().numpy(), want,
                                    **TOL[dtype])
+
+
+def test_p_as_two_bf16_terms_keeps_the_bf16_tolerance():
+    """The card's bf16 kernel runs P.V on the tensor cores, which take P in
+    bf16. Rounded once (2^-9 relative), P moves outputs near zero past the
+    bf16 tolerance against the plain version. The kernel carries it as
+    P_hi + P_lo: P_hi is p truncated to bf16, P_lo the exact remainder
+    rounded to bf16, and the two products are summed in f32; that stays
+    inside. The kernel's arithmetic, emulated here in f32 on the CPU."""
+    s, window = 512, 128
+    q, k, v = (_torch(a, "bfloat16") for a in _case(1, s, 2, 2, 64,
+                                                    "bfloat16"))
+    want = tref.flash_attention_ref(q, k, v, window=window).float()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float() * 64 ** -0.5,
+                          k.float())
+    mask = tref.band_mask(s, s, True, window, q.device)
+    p = torch.exp(scores.masked_fill(~mask, float("-inf"))
+                  - scores.masked_fill(~mask, tref.NEG_INF).amax(-1, True))
+    vv = v.float().transpose(1, 2)
+    p_hi = (p.view(torch.int32) & -65536).view(torch.float32)  # truncated
+    p_lo = (p - p_hi).to(torch.bfloat16).float()
+
+    def out(pv):
+        return (pv / p.sum(-1, True)).transpose(1, 2).to(torch.bfloat16) \
+            .float()
+
+    one = out(p.to(torch.bfloat16).float() @ vv)
+    two = out(p_hi @ vv + p_lo @ vv)
+    assert not torch.allclose(one, want, **TOL["bfloat16"])
+    torch.testing.assert_close(two, want, **TOL["bfloat16"])
 
 
 def test_window_wider_than_sequence_is_plain_causal():
