@@ -9,7 +9,8 @@ Phases, in order; any failure raises and exits non-zero:
    is switched off for cuDNN convolutions and for matmuls.
 2. Build: compile ``src/repro_torch/csrc/{weighted_agg,ring_codec,
    flash_attn,ssm_scan}.cu`` for sm_90a, the four nvcc runs at once; print
-   ptxas's registers, shared memory and spills of K5's instances.
+   ptxas's registers, shared memory and spills of the instances of K3, K5
+   and K6.
 3. Kernel phases: K1 (fused server pass), K2 (squared distances) and K3
    (weighted sum) against their plain PyTorch versions on the card, at the
    LeNet width (K=10, N=44,426), the engine's padded LeNet row (K=10,
@@ -23,7 +24,8 @@ Phases, in order; any failure raises and exits non-zero:
    divided by 100; still the host's rate where a call's dispatch outlasts
    its kernels) and by ``torch.profiler`` (the kernels' own device time per
    call, without the gaps in which the card waits for the host; reported
-   only if every call left the same number of device operations).
+   only if every call left the same number of device operations). K3 and
+   its yardstick are also profiled at the ragged N (K=32, N=130,007).
    K4 (int8 dequantize-distance) against its plain version at the engine's
    int8 ring (K=10, N=49,152, qblock 256), a ragged N (K=32, N=130,048,
    qblock 128), a single ragged tile (K=4, N=640, qblock 64) and a
@@ -59,16 +61,18 @@ Phases, in order; any failure raises and exits non-zero:
    boolean band mask), the port never calls it. K5's bf16 instance runs on
    the tensor cores (wgmma fed by TMA), its f32 instance on the CUDA cores.
    At the prefill's shapes K5, SDPA and K6 are also timed as a burst of
-   back-to-back calls (device time: these kernels outlast their dispatch).
+   back-to-back calls (device time: these kernels outlast their dispatch);
+   K6 also at the ragged S.
 8. LM serving path, Hymba-1.5B at full width: ``Model.prefill_logits`` at
    full depth (32 layers, bf16, port init from a seeded generator on the
    card), B=2, S=4096, launching K5 and K6 exactly 32 times each, finite
    logits, prefill tokens/s and peak memory, and a ``torch.profiler``
    capture of one warm prefill (its ten largest device operations, K5's
-   and K6's share); the same weights at 2 layers, S=512, on the card
-   against the CPU (f32 and bf16); decode against the full forward at 4
-   layers, f32, S=1536 (the 1024-slot ring cache wraps); ``launch/serve.py``
-   at full depth (batch 4, prompt 32, gen 16).
+   and K6's share, K6's device time per launch); the same weights at 2
+   layers, S=512, on the card against the CPU (f32 and bf16); decode
+   against the full forward at 4 layers, f32, S=1536 (the 1024-slot ring
+   cache wraps); ``launch/serve.py`` at full depth (batch 4, prompt 32,
+   gen 16).
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -169,6 +173,8 @@ POLICIES = ("paper", "multiplicative", "fedbuff", "polynomial", "fedasync",
             "fedasync_constant", "fedasync_hinge", "fedasync_poly")
 SHAPES = ((10, 44_426), (10, 49_152), (32, 130_007), (16, 16_777_219))
 MAIN_SHAPE = (10, 49_152)  # what the main path gives the kernels
+# profiled beside the main-path shape: K3 where K = 32 takes two row groups
+PROFILED_TOO = {("weighted_sum", 32, 130_007)}
 # K4 shapes (K, N, qblock); the first is the int8 main path's
 INT8_SHAPES = ((10, 49_152, 256), (32, 130_048, 128), (4, 640, 64),
                (16, 16_777_216, 256))
@@ -272,6 +278,18 @@ def profiled_ms(torch, fn, n: int = 20):
     return (total / 1e3 / n if whole else None), count / n
 
 
+def ptxas_lines(report, part: str):
+    """The lines of a ptxas report (``CudaLibrary.ptxas_info``) that belong
+    to the kernels whose mangled names contain ``part``."""
+    keep, out = False, []
+    for line in report:
+        if "Compiling entry function" in line:
+            keep = part in line
+        if keep:
+            out.append(line)
+    return out
+
+
 def fmt_ms(x) -> str:
     return "n/a" if x is None else f"{x:.4f}"
 
@@ -371,6 +389,7 @@ def kernel_phases(torch, ops, ref, rate: float):
         main = (k, n) == MAIN_SHAPE
         for name, r in rows.items():
             kern, plain, lib = calls[name]
+            prof = main or (name, k, n) in PROFILED_TOO
             r["ms"] = time_ms(torch, kern)
             r["plain_ms"] = time_ms(torch, plain)
             r["library_ms"] = time_ms(torch, lib) if lib else None
@@ -378,9 +397,9 @@ def kernel_phases(torch, ops, ref, rate: float):
             r["library_burst_ms"] = time_burst(torch, lib) \
                 if main and lib else None
             r["device_ms"], r["device_ops"] = profiled_ms(torch, kern) \
-                if main else (None, None)
+                if prof else (None, None)
             r["library_device_ms"], r["library_device_ops"] = \
-                profiled_ms(torch, lib) if main and lib else (None, None)
+                profiled_ms(torch, lib) if prof and lib else (None, None)
             bytes_ms = r["bytes"] / rate * 1e3
             ops_ms = r["ops"] / F32_FLOPS * 1e3
             r["bound_ms"] = max(bytes_ms, ops_ms)
@@ -391,12 +410,14 @@ def kernel_phases(torch, ops, ref, rate: float):
                   f"  bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
                   f"  max_abs_err {r['max_abs_err']:.3g}")
             if main:
-                lib_b, lib_d = r["library_burst_ms"], r["library_device_ms"]
-                lib_ops = r["library_device_ops"]
                 print(f"    burst of 100: kernel {r['burst_ms']:.4f} ms  "
-                      f"library {fmt_ms(lib_b)} ms; profiled device time: "
-                      f"kernel {fmt_ms(r['device_ms'])} ms ({r['device_ops']:g}"
-                      f" device ops per call)  library {fmt_ms(lib_d)} ms "
+                      f"library {fmt_ms(r['library_burst_ms'])} ms")
+            if prof:
+                lib_ops = r["library_device_ops"]
+                print(f"    profiled device time: kernel "
+                      f"{fmt_ms(r['device_ms'])} ms ({r['device_ops']:g} device"
+                      f" ops per call)  library "
+                      f"{fmt_ms(r['library_device_ms'])} ms "
                       f"({'n/a' if lib_ops is None else f'{lib_ops:g}'})")
             records[(name, k, n)] = r
         del x, bases, deltas
@@ -562,15 +583,14 @@ def scan_kernel_phase(torch, ss_ops, ss_ref, rate: float):
             library_ms=None, max_abs_err=err, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             burst_ms=time_burst(torch, lambda: ss_ops.selective_scan(*args),
-                                n=10, warmup=2) if s == SCAN_SEQS[0] else None,
+                                n=10, warmup=2),
             library_burst_ms=None,
             device_ms=None, library_device_ms=None)
         print(f"  selective_scan B={b} S={s:5d} di={di} N={n}: kernel "
               f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library n/a  "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes:,d} B, "
               f"{flops / 1e9:.2f} GFLOP)  max_abs_err {err:.3g}")
-        if r["burst_ms"] is not None:
-            print(f"    burst of 10: kernel {r['burst_ms']:.4f} ms")
+        print(f"    burst of 10: kernel {r['burst_ms']:.4f} ms")
         records[s] = r
         del x, dt, bb, c, a, y, want
         torch.cuda.empty_cache()
@@ -692,7 +712,8 @@ def lm_phase(torch, np, fa_ops, ss_ops, serve, get_arch, Model):
 def profile_prefill(torch, model, params, batch, top: int = 10):
     """One warm ``prefill_logits`` under ``torch.profiler`` (CPU + CUDA):
     prints its largest device operations by device time and returns the
-    device milliseconds of K5, K6 and of all device operations."""
+    device milliseconds of K5, K6 and of all device operations, and K6's
+    launches in the capture."""
     with torch.no_grad():
         rows = device_events(torch, profiled(
             torch, lambda: model.prefill_logits(params, batch)))
@@ -711,7 +732,9 @@ def profile_prefill(torch, model, params, batch, top: int = 10):
         return sum(us for name, _, us in rows if part in name) / 1e3
 
     return {"device_ms": total, "flash_attention_ms": named("flash_fwd"),
-            "selective_scan_ms": named("selective_scan")}
+            "selective_scan_ms": named("selective_scan"),
+            "selective_scan_count": sum(c for name, c, _ in rows
+                                        if "selective_scan" in name)}
 
 
 def compare_runs(np, a, b, what: str) -> None:
@@ -797,8 +820,11 @@ def main() -> int:
         lib.load()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(str(p) for p in built)})")
-    for line in fa_kernel.LIBRARY.ptxas_info:
-        print(f"  {line}")
+    for lib, part in ((kernel.LIBRARY, "weighted_sum_kernel"),
+                      (fa_kernel.LIBRARY, "flash_fwd"),
+                      (ss_kernel.LIBRARY, "selective_scan_kernel")):
+        for line in ptxas_lines(lib.ptxas_info, part):
+            print(f"  {line}")
 
     # 3. kernel phases
     print("kernel phases (median of 30 calls, CUDA events):")
@@ -1010,6 +1036,12 @@ def main() -> int:
         print(f"  in the profile: K5 {profile['flash_attention_ms']:.3f} ms, "
               f"K6 {profile['selective_scan_ms']:.3f} ms of "
               f"{profile['device_ms']:.3f} ms of device time")
+        if profile["selective_scan_count"]:
+            k6["device_ms"] = (profile["selective_scan_ms"]
+                               / profile["selective_scan_count"])
+            print(f"  K6 in the profile: {profile['selective_scan_count']} "
+                  f"launches, {k6['device_ms']:.4f} ms per launch (burst "
+                  f"{k6['burst_ms']:.4f} ms)")
     print(f"  phase: {time.perf_counter() - t:.1f} s")
 
     # 9. records

@@ -16,13 +16,43 @@
 //   K1 reads x, bases, deltas and writes upd: (2K+2)*N*4 B;
 //   K2 reads x and bases:                     (K+1)*N*4 B;
 //   K3 reads deltas and writes the output:    (K+1)*N*4 B.
-// What the design does about it: each element is loaded once, by
+// What the design does about it (K1, K2): each element is loaded once, by
 // neighbouring threads at neighbouring addresses (coalesced along N), with
 // ELEMS independent loads per thread in flight; the K2 grid runs k fastest
 // so the K blocks of one N-tile share that tile of x through L2 and x costs
 // one pass from HBM; the K1 weights step touches only the (K, tiles)
 // partials and (K,) vectors, so bases and deltas are each read once and no
 // intermediate leaves the device.
+//
+// K3 (weighted_sum_kernel; also K1's third launch). At the main path's shape
+// (K = 10, N = 49,152: 1.97 MB) the bytes take 0.6 us, so what bounds it in
+// practice is latency: how many dependent memory round trips a thread waits
+// for, and how many SMs have loads in flight. The first design took 256
+// threads x 4 elements per block (48 blocks for 132 SMs) and walked k in a
+// loop whose trip count was known only at run time, so each row's loads
+// were consumed before the next row's were issued: up to K round trips per
+// thread. This design:
+//   - takes kSumThreads = 64 threads x 4 elements per block, 192 blocks at
+//     N = 49,152, so every SM has loads in flight;
+//   - walks k in groups of kSumGroup = 16 rows, unrolled, with the tail group
+//     masked: a thread issues all loads of a group back to back and pays one
+//     round trip per group (one for every K <= 16, two for K = 32), not one
+//     per row;
+//   - loads a thread's 4 elements as one float4 where every row start and
+//     the output are 16-byte aligned (N % 4 == 0 and aligned pointers);
+//     otherwise (odd rows at N = 44,426, 130,007, 16,777,219) 4 scalar loads
+//     spaced kSumThreads apart, each coalesced across the warp;
+//   - owns each output element in one thread: no atomics, no shared memory.
+// Op order: out[n] = fmaf(w[K-1], d[K-1, n], ... fmaf(w[0], d[0, n], 0.f)),
+// k in order 0..K-1, one FMA chain per element, as the first design's
+// contracted `acc += w * d`; the update of eq. 5 is bit-for-bit unchanged.
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md has
+// both runs): at (10, 49,152) 1.62 us of profiled device time, against
+// 3.65 us for the first design and 3.43 us for torch.matmul(w, deltas); at
+// (32, 130,007) 5.7 us (matmul 4.8 us: two row groups); at
+// (16, 16,777,219) 0.44 ms a call, 77% of its 0.34 ms bytes bound.
+// 32-row groups measured slower at the main and largest shapes; 128-thread
+// blocks (96 blocks at the main shape) about the same.
 //
 // Determinism: the TPU kernels carry the distance sums across a sequential
 // grid. CUDA blocks run in no fixed order, so every cross-block sum here is
@@ -51,8 +81,10 @@ using block_reduce::row_sum;
 
 constexpr int kDistElems = 8;              // K2: elements per thread per tile
 constexpr int kDistTile = kThreads * kDistElems;   // 2048 elements
+constexpr int kSumThreads = 64;            // K3: threads per block
 constexpr int kSumElems = 4;               // K3: elements per thread
-constexpr int kSumTile = kThreads * kSumElems;     // 1024 elements
+constexpr int kSumTile = kSumThreads * kSumElems;  // 256 elements
+constexpr int kSumGroup = 16;              // K3: rows whose loads go out together
 
 // Policy codes; kernel.py maps the policy names onto them.
 enum Policy : int {
@@ -152,28 +184,61 @@ fused_weights_kernel(const float* __restrict__ partials, const float* __restrict
   }
 }
 
-// K3: out[n] = sum_k w[k] * d[k, n], k in order 0..K-1. Each thread owns
-// kSumElems elements spaced kThreads apart, so every row load is coalesced.
-__global__ void __launch_bounds__(kThreads)
+// K3: out[n] = sum_k w[k] * d[k, n], k in order 0..K-1 (see the note above).
+// kVec: each thread owns the 4 consecutive elements of one float4; else 4
+// elements spaced kSumThreads apart. Both cover a tile of kSumTile elements.
+template <bool kVec>
+__global__ void __launch_bounds__(kSumThreads)
 weighted_sum_kernel(const float* __restrict__ deltas, const float* __restrict__ w,
                     float* __restrict__ out, int64_t k_rows, int64_t n) {
-  const int64_t base = (int64_t)blockIdx.x * kSumTile + threadIdx.x;
+  const int64_t tile = (int64_t)blockIdx.x * kSumTile;
+  int64_t idx[kSumElems];
+#pragma unroll
+  for (int i = 0; i < kSumElems; ++i)
+    idx[i] = kVec ? tile + (int64_t)threadIdx.x * kSumElems + i
+                  : tile + threadIdx.x + (int64_t)i * kSumThreads;
   float acc[kSumElems];
 #pragma unroll
   for (int i = 0; i < kSumElems; ++i) acc[i] = 0.f;
-  for (int64_t k = 0; k < k_rows; ++k) {
-    const float wk = __ldg(w + k);
-    const float* row = deltas + k * n;
+  for (int64_t k0 = 0; k0 < k_rows; k0 += kSumGroup) {
+    float wk[kSumGroup];
+    float v[kSumGroup][kSumElems];
+    // every load of the group first ...
 #pragma unroll
-    for (int i = 0; i < kSumElems; ++i) {
-      const int64_t idx = base + (int64_t)i * kThreads;
-      if (idx < n) acc[i] += wk * __ldg(row + idx);
+    for (int j = 0; j < kSumGroup; ++j) {
+      if (k0 + j >= k_rows) continue;
+      wk[j] = __ldg(w + k0 + j);
+      const float* row = deltas + (k0 + j) * n;
+      if (kVec) {
+        if (idx[0] < n) {
+          const float4 q = __ldg(reinterpret_cast<const float4*>(row + idx[0]));
+          v[j][0] = q.x;
+          v[j][1] = q.y;
+          v[j][2] = q.z;
+          v[j][3] = q.w;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kSumElems; ++i)
+          if (idx[i] < n) v[j][i] = __ldg(row + idx[i]);
+      }
+    }
+    // ... then the FMAs, in k order
+#pragma unroll
+    for (int j = 0; j < kSumGroup; ++j) {
+      if (k0 + j >= k_rows) continue;
+#pragma unroll
+      for (int i = 0; i < kSumElems; ++i) acc[i] = fmaf(wk[j], v[j][i], acc[i]);
     }
   }
+  if (kVec) {
+    if (idx[0] < n)
+      *reinterpret_cast<float4*>(out + idx[0]) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
 #pragma unroll
-  for (int i = 0; i < kSumElems; ++i) {
-    const int64_t idx = base + (int64_t)i * kThreads;
-    if (idx < n) out[idx] = acc[i];
+    for (int i = 0; i < kSumElems; ++i)
+      if (idx[i] < n) out[idx[i]] = acc[i];
   }
 }
 
@@ -215,9 +280,17 @@ int wa_fused_weights(const float* partials, const float* p, const float* tau,
 
 int wa_weighted_sum(const float* deltas, const float* w, float* out, int64_t k_rows,
                     int64_t n, void* stream) {
-  const int64_t blocks = (n + kSumTile - 1) / kSumTile;
-  weighted_sum_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      deltas, w, out, k_rows, n);
+  const unsigned blocks = (unsigned)((n + kSumTile - 1) / kSumTile);
+  // float4 loads need every row start (deltas + k * n) and out 16-byte aligned
+  const bool vec = n % kSumElems == 0 &&
+                   ((reinterpret_cast<uintptr_t>(deltas) |
+                     reinterpret_cast<uintptr_t>(out)) % 16) == 0;
+  if (vec)
+    weighted_sum_kernel<true><<<blocks, kSumThreads, 0, (cudaStream_t)stream>>>(
+        deltas, w, out, k_rows, n);
+  else
+    weighted_sum_kernel<false><<<blocks, kSumThreads, 0, (cudaStream_t)stream>>>(
+        deltas, w, out, k_rows, n);
   return (int)cudaGetLastError();
 }
 

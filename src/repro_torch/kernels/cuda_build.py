@@ -120,10 +120,11 @@ class CudaLibrary:
 
 def ptxas_report(log: str) -> List[str]:
     """The lines of ``-Xptxas -v`` output that name a kernel and give its
-    registers, shared memory and spills."""
+    registers, shared memory and spills (ptxas prints the spill line without
+    its ``ptxas info`` prefix)."""
     keep = ("Compiling entry function", "Used", "spill stores")
     return [line.strip() for line in log.splitlines()
-            if line.startswith("ptxas info") and any(k in line for k in keep)]
+            if any(k in line for k in keep)]
 
 
 def stream(t: torch.Tensor) -> int:

@@ -1,10 +1,11 @@
 """Load and launch the K6 kernel of ``csrc/ssm_scan.cu``.
 
 The source is built at first use into a plain-C shared library and loaded
-with ``ctypes`` (``kernels/cuda_build.py``). Nothing here runs at import
-time. The launch function takes CUDA tensors that ``ops.selective_scan``
-has already checked, launches on PyTorch's current stream, and raises if a
-launch was refused.
+with ``ctypes`` (``kernels/cuda_build.py``); ``-Xptxas -v`` keeps each
+instance's registers, shared memory and spills in ``LIBRARY.ptxas_info``.
+Nothing here runs at import time. The launch function takes CUDA tensors
+that ``ops.selective_scan`` has already checked, launches on PyTorch's
+current stream, and raises if a launch was refused.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 LIBRARY = CudaLibrary("ssm_scan", {
     "ss_error_string": (ctypes.c_char_p, [_i32]),
     "ss_forward": (_i32, [_p, _p, _p, _p, _p, _p, _i64, _i64, _i64, _i64, _p]),
-}, error_fn="ss_error_string")
+}, error_fn="ss_error_string", extra_flags=("-Xptxas", "-v"))
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,

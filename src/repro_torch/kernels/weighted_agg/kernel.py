@@ -1,9 +1,10 @@
 """Load and launch the CUDA kernels of ``csrc/weighted_agg.cu``.
 
 The source is built at first use into a plain-C shared library and loaded
-with ``ctypes`` (``kernels/cuda_build.py``). Nothing here runs at import
-time: the CPU tests import this module on machines without ``nvcc`` or a
-card. Every function that launches takes CUDA tensors that the ``ops``
+with ``ctypes`` (``kernels/cuda_build.py``); ``-Xptxas -v`` keeps each
+kernel's registers, shared memory and spills in ``LIBRARY.ptxas_info``.
+Nothing here runs at import time: the CPU tests import this module on
+machines without ``nvcc`` or a card. Every function that launches takes CUDA tensors that the ``ops``
 wrappers have already checked, launches on PyTorch's current stream, and
 raises if the launch was refused.
 """
@@ -32,7 +33,7 @@ LIBRARY = CudaLibrary("weighted_agg", {
     "wa_fused_weights": (_i32, [_p, _p, _p, _p, _p, _p, _p, _i32, _i64, _i32,
                                 _i32, _f32, _f32, _f32, _f32, _f32, _f32, _p]),
     "wa_weighted_sum": (_i32, [_p, _p, _p, _i64, _i64, _p]),
-}, error_fn="wa_error_string")
+}, error_fn="wa_error_string", extra_flags=("-Xptxas", "-v"))
 
 
 def _dist_partials(lib, x: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:

@@ -84,6 +84,40 @@ def test_kernels_match_plain(cuda, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 1023, 44426, 130007])
+@pytest.mark.parametrize("k", [1, 9, 33, 64])
+def test_weighted_sum_kernel_edges(cuda, k, n):
+    """K3 at K = 1, a partial row group (9), one past two groups (33) and
+    four groups (64); N below one block, and odd N, whose odd rows start off
+    the 16-byte grid (scalar loads)."""
+    _, _, deltas, p, _, _ = _case(k, n, cuda)
+    w = p / p.mean() - 0.5
+    ops.reset_launches()
+    got = ops.weighted_sum(deltas, w)
+    assert ops.weighted_sum.launches == 1
+    assert torch.equal(got, ops.weighted_sum(deltas, w))
+    torch.testing.assert_close(got, ref.weighted_sum_ref(deltas, w),
+                               rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_weighted_sum_kernel_unaligned_rows(cuda, offset):
+    """Rows of a view that starts ``offset`` floats into its storage: the
+    16-byte path only where the pointers allow it (offset 0)."""
+    k, n = 10, 49152
+    _, _, deltas, p, _, _ = _case(k, n, cuda)
+    store = torch.zeros(k * n + offset, device=cuda)
+    store[offset:] = deltas.reshape(-1)
+    view = store[offset:].view(k, n)
+    w = p / p.mean()
+    got = ops.weighted_sum(view, w)
+    assert torch.equal(got, ops.weighted_sum(deltas, w))
+    torch.testing.assert_close(got, ref.weighted_sum_ref(deltas, w),
+                               rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_count_launches(cuda):
     x, bases, deltas, p, taus, mask = _case(4, 1000, cuda)
     ops.reset_launches()
@@ -232,6 +266,31 @@ def test_selective_scan_kernel_matches_plain(cuda, b, s, di, n):
     y = ss_ops.selective_scan(*args)
     torch.cuda.synchronize()
     assert ss_ops.selective_scan.launches == 1
+    want = ss_ref.selective_scan_ref(*args)
+    torch.testing.assert_close(y, want, rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,di,n", [
+    # di off the 32-channel tile; S at 1 and on each side of the 32-step chunk
+    *[(2, s, di, n) for di in (70, 130) for n in (4, 8, 32)
+      for s in (1, 31, 33)],
+    (1, 1000, 64, 16),  # a grid of 2 blocks, far smaller than the card
+])
+def test_selective_scan_kernel_edges(cuda, b, s, di, n):
+    g = torch.Generator().manual_seed(b * 1000 + s + di + n)
+    x = torch.randn(b, s, di, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, di, generator=g) - 1)
+    bb = torch.randn(b, s, n, generator=g)
+    c = torch.randn(b, s, n, generator=g)
+    a = -torch.exp(0.5 * torch.randn(di, n, generator=g))
+    args = [t.to(cuda) for t in (x, dt, bb, c, a)]
+    ss_ops.reset_launches()
+    y = ss_ops.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ss_ops.selective_scan.launches == 1
+    assert torch.equal(y, ss_ops.selective_scan(*args))  # no atomics
     want = ss_ref.selective_scan_ref(*args)
     torch.testing.assert_close(y, want, rtol=1e-4,
                                atol=1e-5 * float(want.abs().max()))
