@@ -9,14 +9,17 @@ Phases, in order; any failure raises and exits non-zero:
    is switched off for cuDNN convolutions and for matmuls.
 2. Build: compile ``src/repro_torch/csrc/{weighted_agg,ring_codec,
    flash_attn,ssm_scan}.cu`` for sm_90a, the four nvcc runs at once; print
-   ptxas's registers, shared memory and spills of the instances of K3, K5
-   and K6.
+   ptxas's registers, shared memory and spills of the instances of K1, K3,
+   K4, K5 and K6, and the co-resident blocks that bound the cooperative
+   grids of K1 and K4 (one launch each, with a grid-wide barrier inside).
 3. Kernel phases: K1 (fused server pass), K2 (squared distances) and K3
    (weighted sum) against their plain PyTorch versions on the card, at the
    LeNet width (K=10, N=44,426), the engine's padded LeNet row (K=10,
    N=49,152), a ragged N (K=32, N=130,007) and a memory-bound N (K=16,
    N=16,777,219). K1 runs all 8 policies x normalize {mean, none} x with
-   and without an arrival mask. Each phase checks that two launches give
+   and without an arrival mask; its distances must equal K2's bit for bit
+   and its update K3's on ``w * eta_g / k_eff`` bit for bit. Each phase
+   checks that two launches give
    bit-identical distances and times kernel, plain version and library
    yardstick with CUDA events (median of 30 calls after 5 warm-up calls)
    beside the bytes bound. At the main-path shape kernel and yardstick are
@@ -24,15 +27,17 @@ Phases, in order; any failure raises and exits non-zero:
    divided by 100; still the host's rate where a call's dispatch outlasts
    its kernels) and by ``torch.profiler`` (the kernels' own device time per
    call, without the gaps in which the card waits for the host; reported
-   only if every call left the same number of device operations). K3 and
-   its yardstick are also profiled at the ragged N (K=32, N=130,007).
+   only if every call left the same number of device operations). K1 and
+   K4 must leave one device operation per call, their own kernel. K3 and
+   its yardstick are also profiled at the ragged N (K=32, N=130,007), K1
+   (and K4 below) also at the memory-bound N.
    K4 (int8 dequantize-distance) against its plain version at the engine's
    int8 ring (K=10, N=49,152, qblock 256), a ragged N (K=32, N=130,048,
    qblock 128), a single ragged tile (K=4, N=640, qblock 64) and a
    memory-bound N (K=16, N=16,777,216, qblock 256), with scale-0 blocks;
    bit-identical across launches; timed beside its bytes bound and, for
    reference, K2's time on f32 rows of the same (K, N); a burst and the
-   profiled device time at the main-path shape.
+   profiled device time at the main-path shape and the memory-bound N.
 4. Main path: ``repro_torch.core.run_async(engine="vectorized")`` at the
    paper's config (LeNet, 30 clients x 1500 samples, K=10, M=4, B=32,
    scenario paper-fig1, seed 0) for 10 rounds on the card in fused,
@@ -174,7 +179,8 @@ POLICIES = ("paper", "multiplicative", "fedbuff", "polynomial", "fedasync",
 SHAPES = ((10, 44_426), (10, 49_152), (32, 130_007), (16, 16_777_219))
 MAIN_SHAPE = (10, 49_152)  # what the main path gives the kernels
 # profiled beside the main-path shape: K3 where K = 32 takes two row groups
-PROFILED_TOO = {("weighted_sum", 32, 130_007)}
+# and K1 at the memory-bound N
+PROFILED_TOO = {("weighted_sum", 32, 130_007), ("fused_server", 16, 16_777_219)}
 # K4 shapes (K, N, qblock); the first is the int8 main path's
 INT8_SHAPES = ((10, 49_152, 256), (32, 130_048, 128), (4, 640, 64),
                (16, 16_777_216, 256))
@@ -258,24 +264,38 @@ def profiled(torch, fn):
     return prof.key_averages()
 
 
-def profiled_ms(torch, fn, n: int = 20):
+def profiled_ms(torch, fn, n: int = 20, tries: int = 3):
     """Device milliseconds per call from ``torch.profiler``: the device
     operations' own durations over ``n`` back-to-back calls, divided by
     ``n``; the gaps in which the card waits for the host are not counted.
     For calls whose kernels take microseconds and whose dispatch takes
     longer (K1-K4 and their yardsticks at LeNet width); of millisecond
-    kernels in such a loop the capture kept only some records. Returns it
-    (None unless every call left the same number of device operations) and
-    the device operations recorded per call."""
+    kernels in such a loop the capture kept only some records, so a capture
+    whose operations do not come to a whole number per call is taken again,
+    up to ``tries`` times. Returns the time (None unless every call left the
+    same number of device operations), the device operations recorded per
+    call and the names of the device operations."""
     def calls():
         for _ in range(n):
             fn()
 
-    rows = device_events(torch, profiled(torch, calls))
-    total = sum(us for _, _, us in rows)
-    count = sum(c for _, c, _ in rows)
-    whole = total > 0 and count % n == 0
-    return (total / 1e3 / n if whole else None), count / n
+    for _ in range(tries):
+        rows = device_events(torch, profiled(torch, calls))
+        total = sum(us for _, _, us in rows)
+        count = sum(c for _, c, _ in rows)
+        whole = total > 0 and count % n == 0
+        if whole:
+            break
+    names = {name for name, _, _ in rows}
+    return (total / 1e3 / n if whole else None), count / n, names
+
+
+def check_one_op(name: str, ops_per_call, names, kernel_part: str) -> None:
+    """A kernel that must be one device operation per call: every recorded
+    operation is its kernel, and no call left more than one."""
+    check(len(names) == 1 and kernel_part in next(iter(names))
+          and ops_per_call <= 1,
+          f"{name}: {ops_per_call:g} device operations per call ({names})")
 
 
 def ptxas_lines(report, part: str):
@@ -292,6 +312,12 @@ def ptxas_lines(report, part: str):
 
 def fmt_ms(x) -> str:
     return "n/a" if x is None else f"{x:.4f}"
+
+
+def bound_share(r) -> str:
+    """The bound over the profiled device time, or n/a."""
+    return "n/a" if not r["device_ms"] else \
+        f"{100 * r['bound_ms'] / r['device_ms']:.0f}%"
 
 
 def make_inputs(torch, k: int, n: int, seed: int):
@@ -338,6 +364,7 @@ def kernel_phases(torch, ops, ref, rate: float):
 
         # K1: fused pass, every policy x normalize x mask
         err1 = 0.0
+        ones = torch.ones(k, device="cuda")
         for policy in POLICIES:
             for normalize in ("mean", "none"):
                 for m in (None, mask):
@@ -351,6 +378,14 @@ def kernel_phases(torch, ops, ref, rate: float):
                     u_r, d_r, w_r = ref.server_update_ref(x, bases, deltas, p,
                                                           taus, m, **cfg)
                     tag = f"K1 {policy}/{normalize}/mask={m is not None} {(k, n)}"
+                    # K1 runs K2's and K3's code: the same bits as they give
+                    check(torch.equal(dk, d1), f"{tag}: dists != K2's")
+                    scale = (torch.tensor(cfg["eta_g"], dtype=torch.float32,
+                                          device="cuda")
+                             / torch.clamp((ones if m is None else m).sum(),
+                                           min=1.0))
+                    check(torch.equal(u, ops.weighted_sum(deltas, wk * scale)),
+                          f"{tag}: upd != K3's on w * eta_g / k_eff")
                     check(torch.allclose(dk, d_r, rtol=KERNEL_RTOL, atol=0.0),
                           f"{tag}: dists")
                     check(torch.allclose(wk, w_r, rtol=KERNEL_RTOL,
@@ -393,13 +428,23 @@ def kernel_phases(torch, ops, ref, rate: float):
             r["ms"] = time_ms(torch, kern)
             r["plain_ms"] = time_ms(torch, plain)
             r["library_ms"] = time_ms(torch, lib) if lib else None
-            r["burst_ms"] = time_burst(torch, kern) if main else None
+            r["burst_ms"] = time_burst(torch, kern) if prof else None
             r["library_burst_ms"] = time_burst(torch, lib) \
                 if main and lib else None
-            r["device_ms"], r["device_ops"] = profiled_ms(torch, kern) \
-                if prof else (None, None)
-            r["library_device_ms"], r["library_device_ops"] = \
-                profiled_ms(torch, lib) if prof and lib else (None, None)
+            # a capture of 20 millisecond calls loses records: take 5 there
+            calls_n = 20 if k * n < 10**8 else 5
+            r["device_ms"], r["device_ops"], names = profiled_ms(
+                torch, kern, calls_n) if prof else (None, None, None)
+            r["library_device_ms"], r["library_device_ops"], _ = \
+                profiled_ms(torch, lib) if prof and lib else (None, None, None)
+            if main and name == "fused_server":
+                check_one_op(f"K1 at {(k, n)}", r["device_ops"], names,
+                             "fused_server_kernel")
+                _, masked_ops, masked_names = profiled_ms(
+                    torch, lambda: ops.server_update(x, bases, deltas, p, taus,
+                                                     mask, **cfg))
+                check_one_op(f"K1 with a mask at {(k, n)}", masked_ops,
+                             masked_names, "fused_server_kernel")
             bytes_ms = r["bytes"] / rate * 1e3
             ops_ms = r["ops"] / F32_FLOPS * 1e3
             r["bound_ms"] = max(bytes_ms, ops_ms)
@@ -409,14 +454,14 @@ def kernel_phases(torch, ops, ref, rate: float):
                   f"  plain {r['plain_ms']:.4f} ms  library {lib} ms"
                   f"  bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
                   f"  max_abs_err {r['max_abs_err']:.3g}")
-            if main:
+            if r["burst_ms"] is not None:
                 print(f"    burst of 100: kernel {r['burst_ms']:.4f} ms  "
                       f"library {fmt_ms(r['library_burst_ms'])} ms")
             if prof:
                 lib_ops = r["library_device_ops"]
                 print(f"    profiled device time: kernel "
                       f"{fmt_ms(r['device_ms'])} ms ({r['device_ops']:g} device"
-                      f" ops per call)  library "
+                      f" ops per call, {bound_share(r)} of the bound)  library "
                       f"{fmt_ms(r['library_device_ms'])} ms "
                       f"({'n/a' if lib_ops is None else f'{lib_ops:g}'})")
             records[(name, k, n)] = r
@@ -457,12 +502,17 @@ def int8_kernel_phase(torch, rc_ops, rc_ref, ops, rate: float):
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             burst_ms=None, library_burst_ms=None, device_ms=None,
             library_device_ms=None)
-        if (k, n) == MAIN_SHAPE:
+        if (k, n, qblock) in (INT8_SHAPES[0], INT8_SHAPES[-1]):
             r["burst_ms"] = time_burst(torch, lambda: rc_ops.int8_sq_dists(
                 x, codes, scales, zeros, qblock=qblock))
-            r["device_ms"], ops_per_call = profiled_ms(
+            r["device_ms"], ops_per_call, names = profiled_ms(
                 torch, lambda: rc_ops.int8_sq_dists(x, codes, scales, zeros,
-                                                    qblock=qblock))
+                                                    qblock=qblock),
+                20 if k * n < 10**8 else 5)
+            r["device_ops"] = ops_per_call
+            if (k, n, qblock) == INT8_SHAPES[0]:
+                check_one_op(f"K4 at {(k, n, qblock)}", ops_per_call, names,
+                             "int8_sq_dist_kernel")
         bases = torch.randn(k, n, device="cuda", generator=g)
         k2_ms = time_ms(torch, lambda: ops.sq_dists(x, bases))
         print(f"  int8_sq_dists K={k:3d} N={n:>10,d} qblock={qblock:3d}: "
@@ -473,7 +523,7 @@ def int8_kernel_phase(torch, rc_ops, rc_ref, ops, rate: float):
         if r["burst_ms"] is not None:
             print(f"    burst of 100: kernel {r['burst_ms']:.4f} ms; profiled "
                   f"device time {fmt_ms(r['device_ms'])} ms ({ops_per_call:g} "
-                  f"device ops per call)")
+                  f"device ops per call); {bound_share(r)} of the bound")
         records[(k, n)] = r
         del codes, scales, zeros, x, bases
         torch.cuda.empty_cache()
@@ -820,11 +870,24 @@ def main() -> int:
         lib.load()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(str(p) for p in built)})")
-    for lib, part in ((kernel.LIBRARY, "weighted_sum_kernel"),
+    for lib, part in ((kernel.LIBRARY, "fused_server_kernel"),
+                      (kernel.LIBRARY, "weighted_sum_kernel"),
+                      (rc_kernel.LIBRARY, "int8_sq_dist_kernel"),
                       (fa_kernel.LIBRARY, "flash_fwd"),
                       (ss_kernel.LIBRARY, "selective_scan_kernel")):
         for line in ptxas_lines(lib.ptxas_info, part):
             print(f"  {line}")
+    # the cooperative grids: min(work, co-resident blocks)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for what, blocks in (
+            ("K1 float4 instance, K=10",
+             kernel.fused_resident_blocks(MAIN_SHAPE[0], True)),
+            ("K1 scalar instance, K=10",
+             kernel.fused_resident_blocks(MAIN_SHAPE[0], False)),
+            ("K4 16-byte instance", rc_kernel.resident_blocks(True)),
+            ("K4 element instance", rc_kernel.resident_blocks(False))):
+        print(f"  co-resident blocks, {what}: {blocks} ({blocks / sms:g} "
+              f"per SM of {sms})")
 
     # 3. kernel phases
     print("kernel phases (median of 30 calls, CUDA events):")

@@ -4,14 +4,15 @@ The source is built at first use into a plain-C shared library and loaded
 with ``ctypes`` (``kernels/cuda_build.py``); ``-Xptxas -v`` keeps each
 kernel's registers, shared memory and spills in ``LIBRARY.ptxas_info``.
 Nothing here runs at import time: the CPU tests import this module on
-machines without ``nvcc`` or a card. Every function that launches takes CUDA tensors that the ``ops``
-wrappers have already checked, launches on PyTorch's current stream, and
-raises if the launch was refused.
+machines without ``nvcc`` or a card. Every function that launches takes
+CUDA tensors that the ``ops`` wrappers have already checked, launches on
+PyTorch's current stream, and raises if the launch was refused: K1's
+cooperative launch, too, has no other form to fall back to.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,9 +31,11 @@ LIBRARY = CudaLibrary("weighted_agg", {
     "wa_error_string": (ctypes.c_char_p, [_i32]),
     "wa_sq_dist_partials": (_i32, [_p, _p, _p, _i64, _i64, _p]),
     "wa_reduce_partials": (_i32, [_p, _p, _i64, _i64, _p]),
-    "wa_fused_weights": (_i32, [_p, _p, _p, _p, _p, _p, _p, _i32, _i64, _i32,
-                                _i32, _f32, _f32, _f32, _f32, _f32, _f32, _p]),
     "wa_weighted_sum": (_i32, [_p, _p, _p, _i64, _i64, _p]),
+    "wa_fused_server": (_i32, [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i64,
+                               _i64, _i32, _i32, _f32, _f32, _f32, _f32, _f32,
+                               _f32, _p]),
+    "wa_fused_resident": (_i32, [_i64, _i32]),
 }, error_fn="wa_error_string", extra_flags=("-Xptxas", "-v"))
 
 
@@ -78,29 +81,40 @@ def weighted_sum(deltas: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def fused_server(x: torch.Tensor, bases: torch.Tensor, deltas: torch.Tensor,
-                 p_stat: torch.Tensor, taus: torch.Tensor, mask: torch.Tensor,
-                 *, policy: str, eta_g: float, s_min: float, poly_a: float,
-                 hinge_a: float, hinge_b: float, normalize: str,
-                 eps: float = 1e-12
+                 p_stat: torch.Tensor, taus: torch.Tensor,
+                 mask: Optional[torch.Tensor], *, policy: str, eta_g: float,
+                 s_min: float, poly_a: float, hinge_a: float, hinge_b: float,
+                 normalize: str, eps: float = 1e-12
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1: eq. 3 + weighting + eq. 5 in one call, three launches, no sync.
+    """K1: eq. 3 + weighting + eq. 5 in one cooperative launch, no sync.
 
-    Returns ``(upd (N,), sq_dists (K,), weights (K,))`` with ``upd`` carrying
-    eq. 5's ``eta_g / k_eff`` scale.
+    ``mask=None`` means every slot arrived. Returns ``(upd (N,), sq_dists
+    (K,), weights (K,))`` with ``upd`` carrying eq. 5's ``eta_g / k_eff``
+    scale.
     """
     lib = LIBRARY.load()
     k, n = bases.shape
     dev = bases.device
     with torch.cuda.device(dev):
-        partials = _dist_partials(lib, x, bases)
-        vec = torch.empty((3, k), dtype=torch.float32, device=dev)
-        dists, w, w_scaled = vec[0], vec[1], vec[2]
-        LIBRARY.check(lib, lib.wa_fused_weights(
-            partials.data_ptr(), p_stat.data_ptr(), taus.data_ptr(),
-            mask.data_ptr(), dists.data_ptr(), w.data_ptr(),
-            w_scaled.data_ptr(), k, partials.shape[1], POLICY_CODES[policy],
-            int(normalize == "mean"), eta_g, s_min, poly_a, hinge_a, hinge_b,
-            eps, _stream(bases)), "fused_weights")
+        partials = torch.empty((k, lib.wa_dist_tiles(n)), dtype=torch.float32,
+                               device=dev)
+        vec = torch.empty((2, k), dtype=torch.float32, device=dev)
+        dists, w = vec[0], vec[1]
         upd = torch.empty((n,), dtype=torch.float32, device=dev)
-        _weighted_sum_into(lib, deltas, w_scaled, upd)
+        LIBRARY.check(lib, lib.wa_fused_server(
+            x.data_ptr(), bases.data_ptr(), deltas.data_ptr(),
+            p_stat.data_ptr(), taus.data_ptr(),
+            None if mask is None else mask.data_ptr(), partials.data_ptr(),
+            dists.data_ptr(), w.data_ptr(), upd.data_ptr(), k, n,
+            POLICY_CODES[policy], int(normalize == "mean"), eta_g, s_min,
+            poly_a, hinge_a, hinge_b, eps, _stream(bases)), "fused_server")
     return upd, dists, w
+
+
+def fused_resident_blocks(k: int, vec: bool) -> int:
+    """The most blocks K1's cooperative grid takes at K rows (occupancy x
+    SMs of its float4 or scalar instance) on the current device."""
+    lib = LIBRARY.load()
+    blocks = lib.wa_fused_resident(k, int(vec))
+    LIBRARY.check(lib, 0 if blocks > 0 else -blocks, "fused_resident")
+    return blocks

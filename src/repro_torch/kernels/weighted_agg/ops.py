@@ -102,18 +102,20 @@ def server_update(x: torch.Tensor, bases: torch.Tensor, deltas: torch.Tensor,
     if tuple(deltas.shape) != (k, n):
         raise ValueError(f"deltas must be ({k}, {n}); got {tuple(deltas.shape)}")
     _check_vec(x, n, "x")
-    if arrival_mask is None:
-        arrival_mask = torch.ones((k,), dtype=torch.float32, device=bases.device)
-    for name, v in (("p_stat", p_stat), ("taus", taus),
-                    ("arrival_mask", arrival_mask)):
+    vecs = [("p_stat", p_stat), ("taus", taus)]
+    if arrival_mask is not None:
+        vecs.append(("arrival_mask", arrival_mask))
+    for name, v in vecs:
         _check_vec(v, k, name)
     cfg = dict(policy=policy, eta_g=eta_g, s_min=s_min, poly_a=poly_a,
                hinge_a=hinge_a, hinge_b=hinge_b, normalize=normalize)
-    if not on_cuda(x, bases, deltas, p_stat, taus, arrival_mask):
+    if not on_cuda(x, bases, deltas, *(v for _, v in vecs)):
         return _ref.server_update_ref(x, bases, deltas, p_stat, taus,
                                       arrival_mask, **cfg)
+    # no mask: the kernel takes a null pointer as "every slot arrived"
+    mask = None if arrival_mask is None else _f32(arrival_mask)
     out = _k.fused_server(_f32(x), _f32(bases), _f32(deltas), _f32(p_stat),
-                          _f32(taus), _f32(arrival_mask), **cfg)
+                          _f32(taus), mask, **cfg)
     server_update.launches += 1
     return out
 

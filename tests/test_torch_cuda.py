@@ -129,6 +129,50 @@ def test_cuda_wrappers_count_launches(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 2047, 2049, 44426, 600000])
+@pytest.mark.parametrize("k", [1, 9, 33, 64])
+def test_fused_server_kernel_edges(cuda, k, n):
+    """K1, one cooperative launch, at K = 1 and K past the 8-row groups;
+    N on each side of a 2,048-element distance tile, odd N (scalar loads in
+    the eq. 5 phase) and more than 256 tiles a row (600,000). Every policy,
+    no mask and a mask that drops every slot: a second call gives the same
+    bits, the distances are K2's bit for bit, the update is K3's on
+    ``w * eta_g / k_eff`` bit for bit, and all three are within the plain
+    version's tolerance."""
+    x, bases, deltas, p, taus, _ = _case(k, n, cuda)
+    dists = ops.sq_dists(x, bases)
+    eta_g = 0.7
+    for mask in (None, torch.zeros(k, device=cuda)):
+        ones = torch.ones(k, device=cuda) if mask is None else mask
+        # an f32 tensor over an f32 tensor, as the kernel's eta_g / k_eff
+        scale = (torch.tensor(eta_g, dtype=torch.float32, device=cuda)
+                 / torch.clamp(ones.sum(), min=1.0))
+        for policy in POLICIES:
+            cfg = dict(policy=policy, normalize="mean", eta_g=eta_g)
+            upd, d, w = ops.server_update(x, bases, deltas, p, taus, mask,
+                                          **cfg)
+            again = ops.server_update(x, bases, deltas, p, taus, mask, **cfg)
+            assert all(torch.equal(a, b) for a, b in zip((upd, d, w), again))
+            assert torch.equal(d, dists)
+            assert torch.equal(upd, ops.weighted_sum(deltas, w * scale))
+            want = ref.server_update_ref(x, bases, deltas, p, taus, mask,
+                                         **cfg)
+            for g, w_ in zip((upd, d, w), want):
+                torch.testing.assert_close(
+                    g, w_, rtol=1e-4, atol=1e-5 * float(w_.abs().max()))
+
+
+@pytest.mark.cuda
+def test_fused_server_refused_launch_raises(cuda):
+    """K1 keeps 6 K-vectors in shared memory: at K = 10,000 (240 KB) the
+    cooperative launch is refused, and the wrapper raises rather than fall
+    back to another form."""
+    x, bases, deltas, p, taus, _ = _case(10_000, 1, cuda)
+    with pytest.raises(RuntimeError, match="fused_server launch failed"):
+        ops.server_update(x, bases, deltas, p, taus)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["fused", "batched"])
 def test_engine_on_card_matches_cpu(cuda, mode):
     fl = FLConfig(num_clients=6, buffer_size=3, local_steps=2, batch_size=8,
@@ -176,6 +220,26 @@ def test_int8_kernel_matches_plain(cuda, k, n, qblock):
     assert torch.equal(d, rc_ops.int8_sq_dists(x, codes, scales, zeros,
                                                qblock=qblock))
     assert rc_ops.int8_sq_dists.launches == 2
+    torch.testing.assert_close(
+        d, rc_ref.int8_sq_dists_ref(x, codes, scales, zeros, qblock),
+        rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,qblock", [(1000, 8), (49152, 8), (49152, 64),
+                                      (49152, 256), (4096 * 257, 8),
+                                      (4096 * 257, 64), (4096 * 257, 256)])
+@pytest.mark.parametrize("k", [1, 17, 33, 64])
+def test_int8_kernel_edges(cuda, k, n, qblock):
+    """K4, one cooperative launch, at K = 1 and K past the 8-row groups;
+    qblock 8 (a scale run starts inside a thread's 16 codes), 64 and 256;
+    element loads (N = 1,000) and more than 256 tiles a row (4096 x 257)."""
+    x, codes, scales, zeros = _int8_case(k, n, qblock, cuda)
+    rc_ops.reset_launches()
+    d = rc_ops.int8_sq_dists(x, codes, scales, zeros, qblock=qblock)
+    assert rc_ops.int8_sq_dists.launches == 1
+    assert torch.equal(d, rc_ops.int8_sq_dists(x, codes, scales, zeros,
+                                               qblock=qblock))
     torch.testing.assert_close(
         d, rc_ref.int8_sq_dists_ref(x, codes, scales, zeros, qblock),
         rtol=1e-4, atol=0.0)

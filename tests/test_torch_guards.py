@@ -5,6 +5,8 @@ The port imports neither ``jax`` nor anything of the JAX package ``repro``
 caller asks for the CPU: with no card they raise rather than fall back.
 """
 import ast
+import importlib
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -111,3 +113,47 @@ def test_lm_entry_points_default_to_cuda_and_raise(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         lm_params_from_jax({"w": [1.0]})
     assert Model(cfg, device="cpu").device == torch.device("cpu")
+
+
+KERNEL_MODULES = sorted(p.parent.name for p in (
+    ROOT / "src" / "repro_torch" / "kernels").glob("*/kernel.py"))
+
+
+def _extern_c_functions(source: str) -> dict:
+    """name -> argument count of each function defined in the ``extern "C"``
+    blocks of a CUDA source (plain C signatures: no function pointers)."""
+    funcs = {}
+    for block in re.findall(r'extern "C" \{(.*?)\n\}  // extern "C"', source,
+                            re.S):
+        block = re.sub(r"//[^\n]*", "", block)
+        for name, args in re.findall(
+                r"^[A-Za-z_][\w\s\*]*?\b(\w+)\s*\(([^)]*)\)\s*\{", block,
+                re.M):
+            args = args.strip()
+            funcs[name] = 0 if args in ("", "void") else args.count(",") + 1
+    return funcs
+
+
+@pytest.mark.parametrize("module", KERNEL_MODULES)
+def test_ctypes_tables_match_the_c_sources(module):
+    """Every entry of a kernel library's ctypes table names a function of the
+    ``extern "C"`` block of its ``csrc/*.cu``, with as many arguments: a
+    mismatch would otherwise show only as a crash on the card."""
+    lib = importlib.import_module(
+        f"repro_torch.kernels.{module}.kernel").LIBRARY
+    defined = _extern_c_functions(lib.source.read_text())
+    assert lib.error_fn in lib.signatures
+    for name, (_, argtypes) in lib.signatures.items():
+        assert name in defined, f"{name} is not in {lib.source.name}'s extern C block"
+        assert len(argtypes) == defined[name], (
+            f"{name}: {len(argtypes)} ctypes arguments, {defined[name]} in "
+            f"{lib.source.name}")
+
+
+def test_extern_c_parser_counts_arguments():
+    src = ('extern "C" {\n\nconst char* a_err(int code) {\n  return 0;\n}\n\n'
+           "// a comment (x, y)\nint a_launch(const float* x, float* y,\n"
+           "             int64_t n, void* stream) {\n  return 0;\n}\n\n"
+           'int64_t a_none(void) { return 1; }\n\n}  // extern "C"\n')
+    assert _extern_c_functions(src) == {"a_err": 1, "a_launch": 4,
+                                        "a_none": 0}
