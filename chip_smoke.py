@@ -9,9 +9,9 @@ Phases, in order; any failure raises and exits non-zero:
    is switched off for cuDNN convolutions and for matmuls.
 2. Build: compile ``src/repro_torch/csrc/{weighted_agg,ring_codec,
    flash_attn,ssm_scan}.cu`` for sm_90a, the four nvcc runs at once; print
-   ptxas's registers, shared memory and spills of the instances of K1, K3,
-   K4, K5 and K6, and the co-resident blocks that bound the cooperative
-   grids of K1 and K4 (one launch each, with a grid-wide barrier inside).
+   ptxas's registers, shared memory and spills of the instances of K1-K6,
+   and the co-resident blocks that bound the cooperative grids of K1 and
+   K4 (one launch each, with a grid-wide barrier inside).
 3. Kernel phases: K1 (fused server pass), K2 (squared distances) and K3
    (weighted sum) against their plain PyTorch versions on the card, at the
    LeNet width (K=10, N=44,426), the engine's padded LeNet row (K=10,
@@ -38,12 +38,29 @@ Phases, in order; any failure raises and exits non-zero:
    bit-identical across launches; timed beside its bytes bound and, for
    reference, K2's time on f32 rows of the same (K, N); a burst and the
    profiled device time at the main-path shape and the memory-bound N.
+   K2 is one launch a call (arrival tickets, one device operation); its
+   distances equal K1's bit for bit at every shape, and two calls on
+   another stream give the same bits. K2's forms (tasks of 1, 2 and 4
+   rows, and the cooperative alternative) are held to the same bits and
+   timed against each other at (10, 49,152), (32, 130,007) and
+   (16, 16,777,219): profiled device time, and per call in a CUDA graph
+   of back-to-back calls (the gaps between launches included).
 4. Main path: ``repro_torch.core.run_async(engine="vectorized")`` at the
    paper's config (LeNet, 30 clients x 1500 samples, K=10, M=4, B=32,
    scenario paper-fig1, seed 0) for 10 rounds on the card in fused,
    batched and reference modes, with launch counts read around each run;
    the three agree, and the fused run agrees with the same run on the CPU.
-5. FedAvg rows: ``run_sync`` for 3 rounds on the card.
+   Then ``engine="legacy"`` (``AsyncServer`` + ``make_server_pass``, one
+   local update per upload) at the same config on the card in fused (K1
+   once a round) and batched (K2 and K3 once a round) modes and on the
+   CPU: card against CPU, and legacy against vectorized round for round
+   (versions, clients, tau exact; the float fields within the main path's
+   tolerances); rounds/s of each run.
+5. FedAvg rows: ``run_sync`` for 3 rounds on the card. The quickstart
+   driver (``launch/quickstart.py``: 8 clients x 300, K=4, 20 rounds,
+   paper and fedbuff) on the card: accuracy at r5/r10/r15/r20, its
+   vectorized runs with an ``obs`` registry (dispatches, host syncs) and
+   tracer (span names), and its legacy runs against them.
 6. Version store: each codec's ring bytes on the card (f32, int8, delta at
    the paper config, R = 33) equal ``ring_device_bytes``. The same 10-round
    run with ``ring_codec="int8"`` (launches K4 and K3 once per round, K1
@@ -178,9 +195,15 @@ POLICIES = ("paper", "multiplicative", "fedbuff", "polynomial", "fedasync",
             "fedasync_constant", "fedasync_hinge", "fedasync_poly")
 SHAPES = ((10, 44_426), (10, 49_152), (32, 130_007), (16, 16_777_219))
 MAIN_SHAPE = (10, 49_152)  # what the main path gives the kernels
-# profiled beside the main-path shape: K3 where K = 32 takes two row groups
-# and K1 at the memory-bound N
-PROFILED_TOO = {("weighted_sum", 32, 130_007), ("fused_server", 16, 16_777_219)}
+# profiled beside the main-path shape: K3 where K = 32 takes two row groups,
+# K1 at the memory-bound N, K2 at both
+PROFILED_TOO = {("weighted_sum", 32, 130_007), ("fused_server", 16, 16_777_219),
+                ("sq_dists", 32, 130_007), ("sq_dists", 16, 16_777_219)}
+# K2's forms timed against each other (PERF.md §6): tasks of 1, 2 or 4 rows
+# with arrival tickets, and the cooperative alternative
+K2_SHAPES = (MAIN_SHAPE, (32, 130_007), (16, 16_777_219))
+# the quickstart driver (launch/quickstart.py): 20 rounds, evals every 5
+QUICKSTART_EVALS = [0, 5, 10, 15, 20]
 # K4 shapes (K, N, qblock); the first is the int8 main path's
 INT8_SHAPES = ((10, 49_152, 256), (32, 130_048, 128), (4, 640, 64),
                (16, 16_777_216, 256))
@@ -236,6 +259,36 @@ def time_burst(torch, fn, n: int = 100, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def time_graph(torch, fn, calls: int = 100, reps: int = 10) -> float:
+    """Milliseconds per call of ``calls`` back-to-back calls captured in one
+    CUDA graph and replayed (median of ``reps`` replays, CUDA events): the
+    device's time per call, the gaps between launches included, without
+    the host's dispatch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()  # warm up on the capture stream (K2's ticket buffer)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
 
 
 def device_events(torch, averages):
@@ -348,6 +401,14 @@ def kernel_phases(torch, ops, ref, rate: float):
         # K2: squared distances
         d1, d2 = ops.sq_dists(x, bases), ops.sq_dists(x, bases)
         check(torch.equal(d1, d2), f"K2 dists not bit-identical at {(k, n)}")
+        # a second stream keeps its own arrival tickets: the same bits
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            d3 = [ops.sq_dists(x, bases) for _ in range(2)]
+        torch.cuda.current_stream().wait_stream(side)
+        check(all(torch.equal(d1, d) for d in d3),
+              f"K2 on a second stream differs at {(k, n)}")
         d_ref = ref.sq_dists_ref(x, bases)
         err2 = float((d1 - d_ref).abs().max())
         check(torch.allclose(d1, d_ref, rtol=KERNEL_RTOL, atol=0.0),
@@ -437,6 +498,9 @@ def kernel_phases(torch, ops, ref, rate: float):
                 torch, kern, calls_n) if prof else (None, None, None)
             r["library_device_ms"], r["library_device_ops"], _ = \
                 profiled_ms(torch, lib) if prof and lib else (None, None, None)
+            if main and name == "sq_dists":
+                check_one_op(f"K2 at {(k, n)}", r["device_ops"], names,
+                             "sq_dist_kernel")
             if main and name == "fused_server":
                 check_one_op(f"K1 at {(k, n)}", r["device_ops"], names,
                              "fused_server_kernel")
@@ -468,6 +532,38 @@ def kernel_phases(torch, ops, ref, rate: float):
         del x, bases, deltas
         torch.cuda.empty_cache()
     return records
+
+
+def k2_forms_phase(torch, kernel, ops, rate: float):
+    """K2's forms against each other at K2_SHAPES: tasks of 1, 2 and 4 rows
+    (one launch, arrival tickets) and the cooperative alternative (K1's
+    front half: tasks of 4 rows, a grid barrier, the row sums). Each must
+    give the wrapper's bits; each is timed by ``torch.profiler`` (device
+    time per call) and in a CUDA graph (per call, gaps included). Returns
+    {(form, k, n): (profiled ms, graph ms)}."""
+    out = {}
+    for k, n in K2_SHAPES:
+        x, bases, *_ = make_inputs(torch, k, n, seed=k + n)
+        want = ops.sq_dists(x, bases)
+        forms = {f"tickets, {g} row{'s' * (g > 1)}":
+                 (lambda g=g: kernel.sq_dists(x, bases, group=g))
+                 for g in (1, 2, 4)}
+        forms["cooperative"] = lambda: kernel.sq_dists_cooperative(x, bases)
+        bound = (k + 1) * n * 4 / rate * 1e3
+        big = k * n >= 10**8
+        for form, fn in forms.items():
+            check(torch.equal(fn(), want), f"K2 {form} bits at {(k, n)}")
+            ms, ops_per_call, _ = profiled_ms(torch, fn, 5 if big else 20)
+            graph = time_graph(torch, fn, 10 if big else 100, 3 if big else 10)
+            out[(form, k, n)] = (ms, graph)
+            share = "n/a" if not ms else f"{100 * bound / ms:.0f}%"
+            print(f"  K2 {form:16s} K={k:3d} N={n:>10,d}: profiled "
+                  f"{'n/a' if ms is None else f'{ms:.5f}'} ms "
+                  f"({ops_per_call:g} ops, {share} of the "
+                  f"{bound:.4f} ms bound); CUDA graph {graph:.5f} ms a call")
+        del x, bases
+        torch.cuda.empty_cache()
+    return out
 
 
 def int8_kernel_phase(torch, rc_ops, rc_ref, ops, rate: float):
@@ -790,7 +886,8 @@ def profile_prefill(torch, model, params, batch, top: int = 10):
 def compare_runs(np, a, b, what: str) -> None:
     check(len(a.round_log) == len(b.round_log), f"{what}: round counts")
     for ra, rb in zip(a.round_log, b.round_log):
-        check(ra["clients"] == rb["clients"] and ra["tau"] == rb["tau"],
+        check(ra["version"] == rb["version"] and ra["clients"] == rb["clients"]
+              and ra["tau"] == rb["tau"],
               f"{what}: event timeline differs at v{ra['version']}")
         for f in ("sq_dists", "staleness_deg", "stat_effect", "weights"):
             x, y = np.asarray(ra[f]), np.asarray(rb[f])
@@ -839,7 +936,8 @@ def main() -> int:
     from repro_torch.kernels.ssm_scan import ops as ss_ops
     from repro_torch.kernels.ssm_scan import ref as ss_ref
     from repro_torch.kernels.weighted_agg import kernel, ops, ref
-    from repro_torch.launch import serve
+    from repro_torch.launch import quickstart, serve
+    from repro_torch.obs import MetricsRegistry, Tracer
     from repro_torch.models import Model, apply_lenet, init_lenet, lenet_loss
     from repro_torch.sim import get_scenario
     from repro_torch.sim.engine import (
@@ -871,6 +969,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(str(p) for p in built)})")
     for lib, part in ((kernel.LIBRARY, "fused_server_kernel"),
+                      (kernel.LIBRARY, "sq_dist"),
                       (kernel.LIBRARY, "weighted_sum_kernel"),
                       (rc_kernel.LIBRARY, "int8_sq_dist_kernel"),
                       (fa_kernel.LIBRARY, "flash_fwd"),
@@ -892,6 +991,9 @@ def main() -> int:
     # 3. kernel phases
     print("kernel phases (median of 30 calls, CUDA events):")
     records = kernel_phases(torch, ops, ref, rate)
+    print("K2's forms (profiled: 20 calls, 5 at N = 16.8M; CUDA graph: 100 "
+          "calls, 10 at N = 16.8M):")
+    k2_forms_phase(torch, kernel, ops, rate)
     int8_records = int8_kernel_phase(torch, rc_ops, rc_ref, ops, rate)
 
     # 4. main path: the paper's Fig. 1 config on the card
@@ -911,7 +1013,8 @@ def main() -> int:
         return lambda p: {"acc": float(
             (apply_lenet(p, x).argmax(-1) == y).float().mean())}
 
-    def run(mode, device, codec="f32", total=rounds, **kw):
+    def run(mode, device, codec="f32", total=rounds, engine="vectorized",
+            **kw):
         clients, _ = dataset()  # fresh per run: batch streams are stateful
         fl = dataclasses.replace(PAPER_FL, server_pass_mode=mode,
                                  ring_codec=codec)
@@ -920,7 +1023,7 @@ def main() -> int:
         t = time.perf_counter()
         res = run_async(lenet_loss, init, clients, fl, total,
                         eval_fn=eval_fn_for(device), eval_every=5, seed=0,
-                        scenario=sc, engine="vectorized", device=device, **kw)
+                        scenario=sc, engine=engine, device=device, **kw)
         if device == "cuda":
             torch.cuda.synchronize()
         dt = time.perf_counter() - t
@@ -929,7 +1032,7 @@ def main() -> int:
                   "weighted_sum": ops.weighted_sum.launches,
                   "int8_sq_dists": rc_ops.int8_sq_dists.launches}
         done = total - (kw["init_state"].version if "init_state" in kw else 0)
-        print(f"  run_async {mode:9s} {codec:5s} on {device}: "
+        print(f"  run_async {engine:10s} {mode:9s} {codec:5s} on {device}: "
               f"{done / dt:.2f} rounds/s ({dt:.2f} s incl. evals), acc "
               f"{[round(h['acc'], 4) for h in res.history]}, launches {counts}")
         check(res.server_rounds == total and len(res.round_log) == total,
@@ -957,6 +1060,37 @@ def main() -> int:
     check(fused.history[-1]["acc"] > fused.history[0]["acc"],
           "accuracy did not rise over the run")
 
+    # 4b. the per-event legacy engine (AsyncServer + make_server_pass) at
+    # the same config: on the card in fused and batched modes, on the CPU
+    print(f"legacy engine: paper-fig1, 30 clients x 1500, K=10, M=4, B=32, "
+          f"{rounds} rounds")
+    legacy_fused, legacy_fused_counts = run("fused", "cuda", engine="legacy")
+    check(legacy_fused_counts == {"fused_server": rounds, "sq_dists": 0,
+                                  "weighted_sum": 0, "int8_sq_dists": 0},
+          f"legacy fused launches {legacy_fused_counts}")
+    legacy_batched, legacy_batched_counts = run("batched", "cuda",
+                                                engine="legacy")
+    check(legacy_batched_counts == {"fused_server": 0, "sq_dists": rounds,
+                                    "weighted_sum": rounds,
+                                    "int8_sq_dists": 0},
+          f"legacy batched launches {legacy_batched_counts}")
+    legacy_cpu, _ = run("fused", "cpu", engine="legacy")
+    compare_runs(np, legacy_fused, legacy_cpu,
+                 "legacy fused on cuda vs legacy on cpu")
+    compare_runs(np, legacy_fused, legacy_batched,
+                 "legacy fused vs legacy batched")
+    compare_runs(np, fused, legacy_fused, "vectorized vs legacy (fused)")
+    compare_runs(np, batched, legacy_batched, "vectorized vs legacy (batched)")
+    # the same evals at the same times; accuracy within one test sample of
+    # 1,024 (params equal to PARAM_ATOL can flip a borderline sample)
+    check(legacy_fused.num_events == fused.num_events
+          and legacy_fused.sim_time == fused.sim_time
+          and [(h["round"], h["time"]) for h in legacy_fused.history]
+          == [(h["round"], h["time"]) for h in fused.history]
+          and all(abs(a["acc"] - b["acc"]) <= 1 / 1024 + 1e-7
+                  for a, b in zip(legacy_fused.history, fused.history)),
+          "legacy vs vectorized: events, sim time or evals differ")
+
     # 5. FedAvg rows on the card
     base = dict(num_clients=30, local_steps=4, local_lr=0.05, batch_size=32,
                 global_lr=1.0)
@@ -975,6 +1109,42 @@ def main() -> int:
         accs = [round(h["acc"], 4) for h in res.history]
         check(all(np.isfinite(accs)) and res.server_rounds == 3, label)
         print(f"  run_sync {label}: {3 / dt:.2f} rounds/s, acc {accs}")
+
+    # 5b. the quickstart driver, both weightings; the vectorized run with
+    # an obs registry and a tracer
+    print("quickstart driver: 8 clients x 300, K=4, M=4, B=32, paper-fig1, "
+          "20 rounds")
+    registry, tracer = MetricsRegistry(), Tracer()
+    t = time.perf_counter()
+    qs = quickstart.run(device="cuda", registry=registry, tracer=tracer)
+    qs_s = time.perf_counter() - t
+    launches_qs = 0
+    for weighting, out in qs.items():
+        res = out["result"]
+        launches_qs += res.num_launches
+        accs = [h["acc"] for h in res.history]
+        check([h["round"] for h in res.history] == QUICKSTART_EVALS
+              and all(0.0 <= a <= 1.0 for a in accs) and accs[-1] > accs[0],
+              f"quickstart {weighting}: evals {res.history}")
+        print(f"  {weighting}: acc at r5/r10/r15/r20 "
+              f"{[round(a, 4) for a in accs[1:]]} (r0 {accs[0]:.4f}); "
+              f"telemetry {out['telemetry']}")
+    snap = registry.snapshot()
+    names = sorted({e["name"] for e in tracer.to_json()["traceEvents"]})
+    check(snap["engine_dispatches_total"] == launches_qs
+          and snap["engine_host_syncs_total"] == len(qs)
+          and names == ["apply", "collect_window", "host_sync"],
+          f"quickstart obs: {snap} {names}")
+    print(f"  obs registry: dispatches {snap['engine_dispatches_total']:g}, "
+          f"host syncs {snap['engine_host_syncs_total']:g}, launch seconds "
+          f"sum {snap['engine_launch_seconds_sum']:.4f} over "
+          f"{snap['engine_launch_seconds_count']:g}; spans {names} "
+          f"({len(tracer.events)} events); {qs_s:.1f} s for both runs")
+    qs_legacy = quickstart.run(device="cuda", engine="legacy")
+    for weighting in qs:
+        compare_runs(np, qs[weighting]["result"],
+                     qs_legacy[weighting]["result"],
+                     f"quickstart {weighting}: vectorized vs legacy")
 
     # 6. version store: ring bytes, the int8 and delta paths, checkpoint
     print("version store: paper config, R = 33")

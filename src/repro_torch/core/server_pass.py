@@ -15,6 +15,10 @@ The flatten adapter walks the parameter tree in the JAX package's leaf
 order and zero-pads to the same ``n_padded``, so flat vectors (and the
 engine's version-ring rows) match the JAX package's element for element.
 
+``make_server_pass`` wraps the round core for trees of stacked (K, ...)
+leaves, with the eq. 4 probe: ``AsyncServer`` (``core/server.py``) runs it
+once per round.
+
 Modes (``FLConfig.server_pass_mode``):
   reference : plain PyTorch on any device;
   batched   : eq. 3 through the K2 kernel (``ops.sq_dists``) and eq. 5
@@ -28,10 +32,12 @@ mode runs on the CPU too; on CUDA tensors they launch their kernels.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.func import vmap
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.weighting import (
@@ -40,6 +46,7 @@ from repro_torch.core.weighting import (
     statistical_effect,
 )
 from repro_torch.kernels.weighted_agg import ops as _ops
+from repro_torch.utils.device import DeviceLike
 from repro_torch.utils.tree import Path, tree_leaves, tree_paths, tree_unflatten
 
 MODES = ("auto", "reference", "batched", "fused")
@@ -195,3 +202,53 @@ def _weight_and_reduce(dists, deltas, p, taus, mask, fl: FLConfig, *,
     else:
         upd = torch.sum(deltas * w_scaled[:, None], dim=0)
     return upd, s, w
+
+
+def make_server_pass(fl: FLConfig, fresh_loss_fn: Optional[Callable], *,
+                     mode: Optional[str] = None,
+                     device: DeviceLike = "cuda") -> Callable:
+    """The server pass over stacked trees, memoized per (fl, fresh_loss_fn,
+    mode, device), as the JAX package's ``make_server_pass``.
+
+    Returns ``pass_fn(params, deltas_st, bases_st, probes, probe_mask,
+    data_sizes, taus, precomputed_losses=None) -> (new_params, info)``:
+    ``deltas_st`` / ``bases_st`` are trees with (K, ...) leaves, ``probes``
+    a tree of stacked probe batches (leading K) or None, ``probe_mask`` (K,)
+    {0, 1} marks the entries that supplied a probe (the rest take loss 1.0,
+    i.e. pure size weighting), and ``precomputed_losses`` (K,) skips the
+    probe. The eq. 4 probe is ``torch.func.vmap`` of ``fresh_loss_fn`` over
+    the batch axis. ``mode`` (default ``fl.server_pass_mode``) resolves on
+    ``device``: ``auto`` is ``fused`` on CUDA, ``reference`` on the CPU.
+    Everything stays on the device.
+    """
+    return _server_pass(fl, fresh_loss_fn,
+                        fl.server_pass_mode if mode is None else mode,
+                        torch.device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _server_pass(fl: FLConfig, fresh_loss_fn: Optional[Callable], mode: str,
+                 device: torch.device) -> Callable:
+    mode_ = resolve_mode(mode, device)
+
+    def pass_fn(params, deltas_st, bases_st, probes, probe_mask, data_sizes,
+                taus, precomputed_losses=None):
+        spec = make_flat_spec(params, fl.server_pass_block_n)
+        x = flatten_tree(spec, params)
+        d = flatten_stacked(spec, deltas_st)
+        b = flatten_stacked(spec, bases_st)
+        data_sizes_ = data_sizes.to(torch.float32)
+        if precomputed_losses is not None:
+            losses = precomputed_losses.to(torch.float32)
+        elif probes is None or fresh_loss_fn is None:
+            losses = torch.ones_like(data_sizes_)
+        else:
+            losses = vmap(lambda pb: fresh_loss_fn(params, pb))(probes)
+            losses = losses.to(torch.float32)
+            if probe_mask is not None:
+                losses = torch.where(probe_mask > 0, losses, 1.0)
+        new_x, info = apply_server_round(x, b, d, losses, data_sizes_, taus,
+                                         fl, mode=mode_)
+        return unflatten_like(spec, new_x), info
+
+    return pass_fn

@@ -1,4 +1,5 @@
-"""Simulation entry points: ``run_async`` and ``run_sync``.
+"""Simulation entry points: ``run_async``, ``run_async_legacy`` and
+``run_sync``.
 
 The engine modules are imported inside the runners: ``repro_torch.sim.
 engine`` depends on ``repro_torch.core``, so a module-level import here
@@ -14,8 +15,6 @@ from repro_torch.sim.scenarios import LatencyModel
 from repro_torch.utils.device import DeviceLike
 
 _NOT_PORTED = {
-    "legacy": "the per-event legacy engine is deferred to the rest of "
-              "Slice A (ROADMAP.md, Queue 1)",
     "population": "the population engine comes with Slice D (ROADMAP.md)",
 }
 
@@ -32,19 +31,32 @@ def run_async(loss_fn: Callable, init_params: Any, clients: Sequence,
     """Simulate buffered-async FL for ``total_rounds`` server rounds.
 
     Runs on CUDA unless ``device="cpu"``; raises ``RuntimeError`` when CUDA
-    is asked for and absent. Only ``engine="vectorized"`` is ported; it
-    accepts ``scenario=``, ``behavior=``, ``trace=`` and
-    ``rounds_per_launch=``.
+    is asked for and absent. ``engine="vectorized"`` (default) runs each
+    K-upload window as one K-client batch; ``engine="legacy"`` replays the
+    per-event loop. Both accept ``scenario=``, ``behavior=``, ``trace=``
+    and ``record_trace=``; the vectorized engine also takes
+    ``rounds_per_launch=``, ``registry=``, ``tracer=`` and the checkpoint
+    arguments.
     """
     if engine in _NOT_PORTED:
         raise NotImplementedError(f"engine={engine!r} is not ported: "
                                   f"{_NOT_PORTED[engine]}")
-    if engine != "vectorized":
-        raise ValueError(f"unknown engine {engine!r}; valid: 'vectorized'")
-    from repro_torch.sim.engine import run_vectorized
-    return run_vectorized(loss_fn, init_params, clients, fl, total_rounds,
-                          eval_fn=eval_fn, eval_every=eval_every,
-                          latency=latency, seed=seed, device=device, **kw)
+    if engine == "vectorized":
+        from repro_torch.sim.engine import run_vectorized as runner
+    elif engine == "legacy":
+        from repro_torch.sim.legacy import run_async_legacy as runner
+    else:
+        raise ValueError(f"unknown engine {engine!r}; "
+                         "valid: 'vectorized', 'legacy'")
+    return runner(loss_fn, init_params, clients, fl, total_rounds,
+                  eval_fn=eval_fn, eval_every=eval_every, latency=latency,
+                  seed=seed, device=device, **kw)
+
+
+def run_async_legacy(*args, **kw) -> SimResult:
+    """See ``repro_torch.sim.legacy.run_async_legacy``."""
+    from repro_torch.sim.legacy import run_async_legacy as f
+    return f(*args, **kw)
 
 
 def run_sync(*args, **kw) -> SimResult:

@@ -3,10 +3,11 @@
 //
 // CUDA blocks run in no fixed order, so a sum across blocks is two-pass:
 // each block writes one partial per (row, tile), then each row of partials
-// is summed in a fixed order -- by reduce_partials_kernel in a second launch
-// (K2), or after a grid-wide barrier inside one cooperative launch (K1, K4:
-// grid_barrier, sum_rows). No atomics: a distance that feeds the eq. 3 min
-// and the s_min floor is bit-identical from run to run.
+// is summed in a fixed order -- by the block that draws a row group's last
+// arrival ticket (K2, weighted_agg.cu), or after a grid-wide barrier inside
+// one cooperative launch (K1, K4: grid_barrier, sum_rows). An atomic is used
+// only as K2's arrival ticket, never in a sum, so a distance that feeds the
+// eq. 3 min and the s_min floor is bit-identical from run to run.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -59,15 +60,6 @@ __device__ __forceinline__ float row_sum(const float* row, int64_t tiles, float*
   return block_sum(acc, smem);
 }
 
-// Second pass: one block per row k reduces partials[k, :] into out[k].
-__global__ void __launch_bounds__(kThreads)
-reduce_partials_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                       int64_t tiles) {
-  __shared__ float smem[kWarps];
-  const float r = row_sum(partials + (int64_t)blockIdx.x * tiles, tiles, smem);
-  if (threadIdx.x == 0) out[blockIdx.x] = r;
-}
-
 // a / b for 0 <= a, 0 < b; 32-bit where both fit (64-bit division is a
 // long subroutine, and a task's first index waits on it).
 __device__ __forceinline__ int64_t div_index(int64_t a, int64_t b) {
@@ -79,8 +71,7 @@ __device__ __forceinline__ int64_t div_index(int64_t a, int64_t b) {
 __device__ __forceinline__ void grid_barrier() { cooperative_groups::this_grid().sync(); }
 
 // Inside a cooperative launch, after a grid_barrier: block b sums rows
-// b, b + gridDim.x, ... of partials (K, tiles) into out, each exactly as
-// reduce_partials_kernel does.
+// b, b + gridDim.x, ... of partials (K, tiles) into out, each by row_sum.
 __device__ __forceinline__ void sum_rows(const float* partials, float* __restrict__ out,
                                          int64_t k_rows, int64_t tiles, float* smem) {
   for (int64_t k = blockIdx.x; k < k_rows; k += gridDim.x) {

@@ -6,7 +6,7 @@
 //   K1 fused_server_pallas (:131, body _fused_server_kernel :61)
 //        -> wa_fused_server: fused_server_kernel<vec>, one cooperative launch;
 //   K2 sq_dists_pallas     (:208, body _sq_dist_kernel :190)
-//        -> wa_sq_dist_partials + wa_reduce_partials;
+//        -> wa_sq_dists: sq_dist_kernel<group>, one ordinary launch;
 //   K3 weighted_sum_pallas (:41, body _weighted_sum_kernel :34)
 //        -> wa_weighted_sum.
 //
@@ -17,8 +17,22 @@
 //   K3 reads deltas and writes the output:    (K+1)*N*4 B.
 // Each element is loaded once, by neighbouring threads at neighbouring
 // addresses (coalesced along N), with several independent loads per thread
-// in flight. K2's tasks run k fastest, so the K blocks of one N-tile share
-// that tile of x through L2 and x costs one pass from HBM.
+// in flight.
+//
+// K2 (sq_dist_kernel<group>) is one ordinary launch of a block per task; a
+// task is K1's phase-0 task (dist_task): one 2048-element tile of x against
+// a group of 1, 2 or 4 rows, x loaded once for the group and all of the
+// group's loads in flight before any arithmetic. Tasks run the group
+// fastest, so the blocks of one tile share it through L2. A block writes its
+// group's partials, fences, and takes an arrival ticket on the group's
+// counter (atomicInc, which wraps to 0 on the last ticket, so the counters
+// are zero again for the next call). The block that draws the last ticket
+// sums each row of the group in row_sum's order (group_row_sums) and writes
+// dists; the others exit at once: no grid barrier, no second launch. The
+// group size is the wrapper's, from the shape (kernel.py). The cooperative
+// form (sq_dist_cooperative_kernel: K1's front half, grid-stride tasks, one
+// grid barrier, sum_rows) is the measured alternative; chip_smoke.py times
+// both (PERF.md §6).
 //
 // K1 (fused_server_kernel) is one cooperative launch of min(work,
 // co-resident) 256-thread blocks (block_reduce.cuh::launch_cooperative);
@@ -73,9 +87,10 @@
 // Determinism: the TPU kernels carry the distance sums across a sequential
 // grid. CUDA blocks run in no fixed order, so every cross-block sum here is
 // two-pass -- per-block partials, then a reduction in a fixed order
-// (block_reduce.cuh, shared with ring_codec.cu) -- and no kernel uses
-// atomics. The eq. 3 distances feed a min and the s_min floor, so they are
-// bit-identical from run to run.
+// (block_reduce.cuh, shared with ring_codec.cu). An atomic is used only as
+// K2's arrival ticket, never in a sum: it picks which block sums the rows,
+// not the order of the sum. The eq. 3 distances feed a min and the s_min
+// floor, so they are bit-identical from run to run, and K2's equal K1's.
 //
 // Interface: plain C, loaded with ctypes. Every entry point launches on the
 // stream it is given, allocates nothing and returns a cudaError_t as an int.
@@ -89,13 +104,11 @@
 
 namespace {
 
-using block_reduce::block_sum;
 using block_reduce::div_index;
 using block_reduce::grid_barrier;
 using block_reduce::kThreads;
 using block_reduce::kWarps;
 using block_reduce::launch_cooperative;
-using block_reduce::reduce_partials_kernel;
 using block_reduce::Residency;
 using block_reduce::resident_blocks;
 using block_reduce::sum_rows;
@@ -112,7 +125,6 @@ constexpr int kDistGroup = 4;              // K1 phase 0: rows of one x tile per
 constexpr int kFusedMinBlocks = 2;         // K1: co-resident blocks an SM must hold
 constexpr int kSubTiles = kThreads / kSumThreads;  // K1: K3 tiles a block runs at once
 constexpr int kFusedVectors = 6;           // K1: K-vectors in shared memory
-static_assert(kDistGroup <= kWarps, "warp j finishes row j of a group");
 
 // Policy codes; kernel.py maps the policy names onto them.
 enum Policy : int {
@@ -146,21 +158,127 @@ __device__ __forceinline__ float dist_thread_sum(const float* xs, const float* b
   return acc;
 }
 
-// K2 phase 0: partials[k * tiles + t] = the sum over tile t of row k.
-// Block b handles (k = b % K, t = b / K): k runs fastest, so the K blocks of
-// one tile run close together and share the tile of x through L2.
-__global__ void __launch_bounds__(kThreads)
-sq_dist_partials_kernel(const float* __restrict__ x, const float* __restrict__ bases,
-                        float* __restrict__ partials, int64_t k_rows, int64_t n,
-                        int64_t tiles) {
-  __shared__ float smem[kWarps];
-  const int64_t k = blockIdx.x % k_rows;
-  const int64_t t = blockIdx.x / k_rows;
-  float xs[kDistElems], bs[kDistElems];
+// One phase-0 task of K1 and K2: tile t of x against rows k0 .. k0 +
+// kGroup - 1. x is loaded once for the group, every load of the group goes
+// out before any arithmetic, and the group's block sums share one block
+// barrier: block_sum's two stages, each row's warp sums in gsums[j], then
+// warp j finishes row k0 + j and its lane 0 writes the (row, tile) partial.
+// A caller running tasks back to back alternates two gsums buffers.
+template <int kGroup>
+__device__ __forceinline__ void dist_task(const float* __restrict__ x,
+                                          const float* __restrict__ bases, float* partials,
+                                          int64_t k_rows, int64_t n, int64_t tiles, int64_t t,
+                                          int64_t k0, float (*gsums)[kWarps]) {
+  static_assert(kGroup <= kWarps, "warp j finishes row j of a group");
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float xs[kDistElems], bs[kGroup][kDistElems];
   tile_load(x, n, t, xs);
-  tile_load(bases + k * n, n, t, bs);
-  const float acc = block_sum(dist_thread_sum(xs, bs), smem);
-  if (threadIdx.x == 0) partials[k * tiles + t] = acc;
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j)
+    if (k0 + j < k_rows) tile_load(bases + (k0 + j) * n, n, t, bs[j]);
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) {
+    if (k0 + j >= k_rows) continue;
+    const float v = warp_sum(dist_thread_sum(xs, bs[j]));
+    if (lane == 0) gsums[j][warp] = v;
+  }
+  __syncthreads();
+  if (warp < kGroup && k0 + warp < k_rows) {
+    const float r = warp_sums_total(gsums[warp]);
+    if (lane == 0) partials[(k0 + warp) * tiles + t] = r;
+  }
+}
+
+// Rows k0 .. k0 + kGroup - 1 of partials (K, tiles) into dists, each summed
+// as block_reduce.cuh::row_sum does (thread i adds elements i, i + kThreads,
+// ... in order, then block_sum's two stages), so the sums equal K1's
+// sum_rows' bit for bit. kUnroll elements of each
+// row go out before their adds (an add of 0.f past the row's end leaves a
+// sum of squares unchanged). The partials were written by other blocks of
+// this launch: loads through L2 (__ldcg).
+template <int kGroup>
+__device__ __forceinline__ void group_row_sums(const float* partials, float* __restrict__ dists,
+                                               int64_t k_rows, int64_t tiles, int64_t k0,
+                                               float (*gsums)[kWarps]) {
+  constexpr int kUnroll = 4;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float acc[kGroup];
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) acc[j] = 0.f;
+  for (int64_t t0 = threadIdx.x; t0 < tiles; t0 += (int64_t)kUnroll * kThreads) {
+    float v[kGroup][kUnroll];
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j)
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int64_t t = t0 + (int64_t)u * kThreads;
+        v[j][u] = (k0 + j < k_rows && t < tiles) ? __ldcg(partials + (k0 + j) * tiles + t)
+                                                 : 0.f;
+      }
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j)
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) acc[j] += v[j][u];
+  }
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) {
+    const float s = warp_sum(acc[j]);
+    if (lane == 0) gsums[j][warp] = s;
+  }
+  __syncthreads();
+  if (warp < kGroup && k0 + warp < k_rows) {
+    const float r = warp_sums_total(gsums[warp]);
+    if (lane == 0) dists[k0 + warp] = r;
+  }
+}
+
+// K2: block b runs task (t = b / groups, g = b % groups), then takes a
+// ticket on counters[g]; the block that draws the group's last ticket
+// (tiles - 1) sums the group's rows. atomicInc wraps the counter to 0 on
+// that ticket, ready for the next call on this stream.
+template <int kGroup>
+__global__ void __launch_bounds__(kThreads)
+sq_dist_kernel(const float* __restrict__ x, const float* __restrict__ bases, float* partials,
+               unsigned int* counters, float* __restrict__ dists, int64_t k_rows, int64_t n,
+               int64_t tiles, int64_t groups) {
+  __shared__ float gsums[kGroup][kWarps];
+  __shared__ bool last;
+  const int64_t t = div_index(blockIdx.x, groups);
+  const int64_t g = blockIdx.x - t * groups;
+  dist_task<kGroup>(x, bases, partials, k_rows, n, tiles, t, g * kGroup, gsums);
+  // lane 0 of warp j wrote row j's partial: visible before the ticket
+  if ((threadIdx.x & 31) == 0 && (threadIdx.x >> 5) < kGroup) __threadfence();
+  if (kGroup > 1) __syncthreads();  // at 1 row the writer is thread 0 itself
+  if (threadIdx.x == 0) {
+    last = atomicInc(counters + g, (unsigned int)(tiles - 1)) == (unsigned int)(tiles - 1);
+    if (last) __threadfence();  // the other blocks' partials after the ticket
+  }
+  __syncthreads();
+  if (!last) return;
+  group_row_sums<kGroup>(partials, dists, k_rows, tiles, g * kGroup, gsums);
+}
+
+// The measured alternative to K2 (chip_smoke.py): K1's front half as one
+// cooperative launch -- grid-stride tasks of kDistGroup rows, one grid
+// barrier, then block b sums rows b, b + gridDim.x, ... (sum_rows).
+__global__ void __launch_bounds__(kThreads, kFusedMinBlocks)
+sq_dist_cooperative_kernel(const float* __restrict__ x, const float* __restrict__ bases,
+                           float* partials, float* dists, int64_t k_rows, int64_t n,
+                           int64_t tiles) {
+  __shared__ float smem[kWarps];
+  __shared__ float gsums[2][kDistGroup][kWarps];
+  const int64_t groups = div_index(k_rows + kDistGroup - 1, kDistGroup);
+  int buf = 0;
+  for (int64_t task = blockIdx.x; task < tiles * groups; task += gridDim.x) {
+    const int64_t t = div_index(task, groups);
+    dist_task<kDistGroup>(x, bases, partials, k_rows, n, tiles, t,
+                          (task - t * groups) * kDistGroup, gsums[buf]);
+    buf ^= 1;
+  }
+  grid_barrier();
+  sum_rows(partials, dists, k_rows, tiles, smem);
 }
 
 // Where K3's body reads the weights: global memory (K3) or shared (K1).
@@ -338,13 +456,10 @@ fused_server_kernel(const float* __restrict__ x, const float* __restrict__ bases
     st[k] = __ldg(tau + k);
     sm[k] = mask ? __ldg(mask + k) : 1.f;
   }
-  // phase 0: the distance partials. A task is one tile of x against a
-  // group of kDistGroup rows (task = t * groups + g): x is loaded once for
-  // the group, every load of the group goes out before any arithmetic, and
-  // the group's block sums share one block barrier (block_sum's two stages,
-  // the warp sums double-buffered in shared memory).
+  // phase 0: the distance partials, K2's tasks (dist_task) of kDistGroup
+  // rows (task = t * groups + g), the warp sums double-buffered in shared
+  // memory
   __shared__ float gsums[2][kDistGroup][kWarps];
-  const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t groups = div_index(k_rows + kDistGroup - 1, kDistGroup);
   const int64_t tasks = tiles * groups;
@@ -354,23 +469,8 @@ fused_server_kernel(const float* __restrict__ x, const float* __restrict__ bases
   int64_t g = blockIdx.x - t * groups;
   int buf = 0;
   for (int64_t task = blockIdx.x; task < tasks; task += gridDim.x) {
-    const int64_t k0 = g * kDistGroup;
-    float xs[kDistElems], bs[kDistGroup][kDistElems];
-    tile_load(x, n, t, xs);
-#pragma unroll
-    for (int j = 0; j < kDistGroup; ++j)
-      if (k0 + j < k_rows) tile_load(bases + (k0 + j) * n, n, t, bs[j]);
-#pragma unroll
-    for (int j = 0; j < kDistGroup; ++j) {
-      if (k0 + j >= k_rows) continue;
-      const float v = warp_sum(dist_thread_sum(xs, bs[j]));
-      if (lane == 0) gsums[buf][j][warp] = v;
-    }
-    __syncthreads();
-    if (warp < kDistGroup && k0 + warp < k_rows) {
-      const float r = warp_sums_total(gsums[buf][warp]);
-      if (lane == 0) partials[(k0 + warp) * tiles + t] = r;
-    }
+    dist_task<kDistGroup>(x, bases, partials, k_rows, n, tiles, t, g * kDistGroup,
+                          gsums[buf]);
     buf ^= 1;
     g += step_g;
     t += step_t;
@@ -404,6 +504,7 @@ fused_server_kernel(const float* __restrict__ x, const float* __restrict__ bases
 }
 
 Residency fused_residency[2];  // per instance: scalar, float4
+Residency cooperative_residency;  // K2's measured alternative
 
 // float4 loads need every row start (rows + k * n) and out 16-byte aligned
 bool aligned4(const float* rows, const float* out, int64_t n) {
@@ -426,19 +527,47 @@ const char* wa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int wa_sq_dist_partials(const float* x, const float* bases, float* partials,
-                        int64_t k_rows, int64_t n, void* stream) {
+// K2 in one launch: dists (K,) = ||x - b_k||^2 from tasks of `group` rows
+// (1, 2 or 4). partials is (K, wa_dist_tiles(n)) scratch; counters holds
+// ceil(K / group) arrival tickets, zero before the call and zero again after
+// it, used by one stream at a time.
+int wa_sq_dists(const float* x, const float* bases, float* partials, unsigned int* counters,
+                float* dists, int64_t k_rows, int64_t n, int group, void* stream) {
+  if (k_rows < 1 || n < 1) return (int)cudaErrorInvalidValue;
   const int64_t tiles = wa_dist_tiles(n);
-  sq_dist_partials_kernel<<<(unsigned)(k_rows * tiles), kThreads, 0,
-                            (cudaStream_t)stream>>>(x, bases, partials, k_rows, n, tiles);
+  const int64_t groups = (k_rows + group - 1) / group;
+  const unsigned blocks = (unsigned)(tiles * groups);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (group) {
+    case 1:
+      sq_dist_kernel<1><<<blocks, kThreads, 0, s>>>(x, bases, partials, counters, dists,
+                                                     k_rows, n, tiles, groups);
+      break;
+    case 2:
+      sq_dist_kernel<2><<<blocks, kThreads, 0, s>>>(x, bases, partials, counters, dists,
+                                                     k_rows, n, tiles, groups);
+      break;
+    case 4:
+      sq_dist_kernel<4><<<blocks, kThreads, 0, s>>>(x, bases, partials, counters, dists,
+                                                     k_rows, n, tiles, groups);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
-int wa_reduce_partials(const float* partials, float* out, int64_t k_rows, int64_t tiles,
-                       void* stream) {
-  reduce_partials_kernel<<<(unsigned)k_rows, kThreads, 0, (cudaStream_t)stream>>>(
-      partials, out, tiles);
-  return (int)cudaGetLastError();
+// The measured alternative to wa_sq_dists: one cooperative launch of
+// min(tasks, co-resident) blocks. A refused launch returns its error.
+int wa_sq_dists_cooperative(const float* x, const float* bases, float* partials,
+                            float* dists, int64_t k_rows, int64_t n, void* stream) {
+  if (k_rows < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  int64_t tiles = wa_dist_tiles(n);
+  const int64_t tasks = tiles * ((k_rows + kDistGroup - 1) / kDistGroup);
+  const int64_t work = tasks > k_rows ? tasks : k_rows;  // row sums: a block a row
+  void* args[] = {&x, &bases, &partials, &dists, &k_rows, &n, &tiles};
+  return (int)launch_cooperative(sq_dist_cooperative_kernel, work, 0, cooperative_residency,
+                                 args, stream);
 }
 
 int wa_weighted_sum(const float* deltas, const float* w, float* out, int64_t k_rows,

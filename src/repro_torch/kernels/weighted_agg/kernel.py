@@ -7,12 +7,15 @@ Nothing here runs at import time: the CPU tests import this module on
 machines without ``nvcc`` or a card. Every function that launches takes
 CUDA tensors that the ``ops`` wrappers have already checked, launches on
 PyTorch's current stream, and raises if the launch was refused: K1's
-cooperative launch, too, has no other form to fall back to.
+cooperative launch, too, has no other form to fall back to. K2 keeps its
+arrival tickets in a small zeroed buffer per (device, stream).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -29,8 +32,8 @@ _p, _i64, _i32, _f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 LIBRARY = CudaLibrary("weighted_agg", {
     "wa_dist_tiles": (_i64, [_i64]),
     "wa_error_string": (ctypes.c_char_p, [_i32]),
-    "wa_sq_dist_partials": (_i32, [_p, _p, _p, _i64, _i64, _p]),
-    "wa_reduce_partials": (_i32, [_p, _p, _i64, _i64, _p]),
+    "wa_sq_dists": (_i32, [_p, _p, _p, _p, _p, _i64, _i64, _i32, _p]),
+    "wa_sq_dists_cooperative": (_i32, [_p, _p, _p, _p, _i64, _i64, _p]),
     "wa_weighted_sum": (_i32, [_p, _p, _p, _i64, _i64, _p]),
     "wa_fused_server": (_i32, [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i64,
                                _i64, _i32, _i32, _f32, _f32, _f32, _f32, _f32,
@@ -39,26 +42,73 @@ LIBRARY = CudaLibrary("weighted_agg", {
 }, error_fn="wa_error_string", extra_flags=("-Xptxas", "-v"))
 
 
-def _dist_partials(lib, x: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
-    k, n = bases.shape
-    partials = torch.empty((k, lib.wa_dist_tiles(n)), dtype=torch.float32,
-                           device=bases.device)
-    LIBRARY.check(lib, lib.wa_sq_dist_partials(
-        x.data_ptr(), bases.data_ptr(), partials.data_ptr(), k, n,
-        _stream(bases)), "sq_dist_partials")
-    return partials
+# K2's arrival tickets: one uint32 per row group, a buffer per (device,
+# stream), zeroed once when it is made; every call leaves them zero again,
+# so a call is one device operation. Two streams never share a buffer.
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+_TICKETS_LOCK = threading.Lock()
 
 
-def sq_dists(x: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
-    """K2: (K,) ||x - b_k||^2. Two launches: tile partials, fixed-order sum."""
+def _tickets(device: torch.device, stream: int, groups: int) -> torch.Tensor:
+    key = (device.index, stream)
+    with _TICKETS_LOCK:
+        buf = _TICKETS.get(key)
+        if buf is None or buf.numel() < groups:
+            buf = torch.zeros((max(groups, 64),), dtype=torch.int32, device=device)
+            _TICKETS[key] = buf
+    return buf
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _dist_group(k: int, tiles: int, device: torch.device) -> int:
+    """Rows per K2 task: 4 (x read once per 4 rows) where the (tile, group)
+    tasks of 4 still give every SM a block, else 1, so that every SM
+    carries loads (PERF.md §6, PR 17)."""
+    return 4 if tiles * -(-k // 4) >= _sm_count(device) else 1
+
+
+def _partials(lib, k: int, n: int, device: torch.device) -> torch.Tensor:
+    return torch.empty((k, lib.wa_dist_tiles(n)), dtype=torch.float32,
+                       device=device)
+
+
+def sq_dists(x: torch.Tensor, bases: torch.Tensor,
+             group: Optional[int] = None) -> torch.Tensor:
+    """K2: (K,) ||x - b_k||^2 in one launch: tasks of ``group`` rows
+    (``_dist_group``'s choice unless given), each row summed by the block
+    that draws its group's last arrival ticket."""
     lib = LIBRARY.load()
-    with torch.cuda.device(bases.device):
-        partials = _dist_partials(lib, x, bases)
-        out = torch.empty((bases.shape[0],), dtype=torch.float32,
-                          device=bases.device)
-        LIBRARY.check(lib, lib.wa_reduce_partials(
-            partials.data_ptr(), out.data_ptr(), partials.shape[0],
-            partials.shape[1], _stream(bases)), "reduce_partials")
+    k, n = bases.shape
+    dev = bases.device
+    with torch.cuda.device(dev):
+        partials = _partials(lib, k, n, dev)
+        group = group or _dist_group(k, partials.shape[1], dev)
+        s = _stream(bases)
+        tickets = _tickets(dev, s, -(-k // group))
+        out = torch.empty((k,), dtype=torch.float32, device=dev)
+        LIBRARY.check(lib, lib.wa_sq_dists(
+            x.data_ptr(), bases.data_ptr(), partials.data_ptr(),
+            tickets.data_ptr(), out.data_ptr(), k, n, group, s), "sq_dists")
+    return out
+
+
+def sq_dists_cooperative(x: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
+    """K2's measured alternative (``chip_smoke.py`` only): K1's front half
+    as one cooperative launch, tasks of 4 rows, a grid barrier, the row
+    sums. The same bits as ``sq_dists``."""
+    lib = LIBRARY.load()
+    k, n = bases.shape
+    dev = bases.device
+    with torch.cuda.device(dev):
+        out = torch.empty((k,), dtype=torch.float32, device=dev)
+        LIBRARY.check(lib, lib.wa_sq_dists_cooperative(
+            x.data_ptr(), bases.data_ptr(),
+            _partials(lib, k, n, dev).data_ptr(), out.data_ptr(), k, n,
+            _stream(bases)), "sq_dists_cooperative")
     return out
 
 
@@ -96,8 +146,7 @@ def fused_server(x: torch.Tensor, bases: torch.Tensor, deltas: torch.Tensor,
     k, n = bases.shape
     dev = bases.device
     with torch.cuda.device(dev):
-        partials = torch.empty((k, lib.wa_dist_tiles(n)), dtype=torch.float32,
-                               device=dev)
+        partials = _partials(lib, k, n, dev)
         vec = torch.empty((2, k), dtype=torch.float32, device=dev)
         dists, w = vec[0], vec[1]
         upd = torch.empty((n,), dtype=torch.float32, device=dev)

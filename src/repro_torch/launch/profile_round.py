@@ -32,9 +32,8 @@ WARMUP_ROUNDS = 3  # untimed: one-time CUDA/cuDNN set-up
 TOP = 12  # kernels listed
 # kernels of csrc/weighted_agg.cu and csrc/ring_codec.cu, by the names the
 # profiler reports
-OWN_KERNELS = ("sq_dist_partials_kernel", "reduce_partials_kernel",
-               "fused_weights_kernel", "weighted_sum_kernel",
-               "int8_sq_dist_partials_kernel")
+OWN_KERNELS = ("fused_server_kernel", "sq_dist_kernel", "weighted_sum_kernel",
+               "int8_sq_dist_kernel")
 
 
 def _run(fl, rounds, init, sc, device):

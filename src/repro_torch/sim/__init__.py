@@ -4,11 +4,14 @@
 ``traces``    — record/replay of client timelines.
 ``base``      — ``SimResult`` and the round-log / eval helpers.
 ``engine``    — the vectorized round engine (``run_vectorized``).
-``legacy``    — synchronous FedAvg (``run_sync``).
+``legacy``    — the per-event loop (``run_async_legacy``) and synchronous
+                FedAvg (``run_sync``).
+``metrics``   — round-log telemetry (``summarize``; numpy).
 
 Only the numpy modules load here; import ``repro_torch.sim.engine`` or
 ``repro_torch.sim.legacy`` for the engines.
 """
+from repro_torch.sim import metrics  # noqa: F401
 from repro_torch.sim.base import SimResult, make_batches, resolve_behavior  # noqa: F401
 from repro_torch.sim.scenarios import (  # noqa: F401
     ClientBehavior,

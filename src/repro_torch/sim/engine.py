@@ -20,7 +20,9 @@ walks the event heap ahead of the device: it collects up to
 one transfer per array, and runs those S rounds back to back. Round infos
 stay on the device; the whole run's round log is fetched ONCE at the end,
 never with a per-round host sync. Launch chunks are clipped to eval
-boundaries, so the eval cadence matches the JAX engine's.
+boundaries, so the eval cadence matches the JAX engine's. A registry and
+a tracer (``obs/``) count the dispatches and host syncs and time the
+round-lifecycle spans, as the JAX engine's do.
 
 The host event walk (``collect_window``) is the JAX engine's, unchanged:
 uploads in (time, client) heap order, dropped uploads re-pull and retrain,
@@ -34,6 +36,7 @@ gives the arrays ``checkpoint/ckpt.py`` writes, in the JAX engine's layout.
 from __future__ import annotations
 
 import heapq
+import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -42,6 +45,15 @@ import torch
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.round_body import make_ring_round
 from repro_torch.core.version_store import build_ring, ring_state_to_host
+from repro_torch.obs.metrics import MetricsRegistry, default_registry
+from repro_torch.obs.trace import (
+    NULL_TRACER,
+    SPAN_APPLY,
+    SPAN_CHECKPOINT,
+    SPAN_COLLECT,
+    SPAN_HOST_SYNC,
+    Tracer,
+)
 from repro_torch.sim.base import (
     SimResult,
     history_from_arrays,
@@ -151,18 +163,29 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
                    behavior: Optional[ClientBehavior] = None,
                    scenario: Optional[Scenario] = None,
                    trace: Optional[EventTrace] = None,
+                   record_trace: bool = False,
                    rounds_per_launch: int = 8,
                    init_state: Optional[EngineState] = None,
                    capture_state: bool = False,
+                   registry: Optional[MetricsRegistry] = None,
+                   tracer: Optional[Tracer] = None,
                    device: DeviceLike = "cuda") -> SimResult:
     """Simulate buffered-async FL on ``device`` (CUDA unless asked otherwise).
 
     Same contract as the JAX ``run_vectorized`` on one device; behavior
     precedence: ``trace`` (replay) > ``behavior`` > ``scenario`` >
-    ``latency``; recording a trace is not ported. ``init_params`` (a
-    nested dict of tensors or arrays) is copied onto ``device``.
-    ``SimResult.num_launches`` counts the launch chunks dispatched;
-    ``SimResult.final_params`` holds the last round's params.
+    ``latency``; ``record_trace=True`` attaches the run's ``EventTrace``.
+    ``init_params`` (a nested dict of tensors or arrays) is copied onto
+    ``device``. ``SimResult.num_launches`` counts the launch chunks
+    dispatched; ``SimResult.final_params`` holds the last round's params.
+
+    Observability, as the JAX engine's: every chunk dispatch goes through
+    one wrapper that counts ``engine_dispatches_total`` and observes its
+    host-side time in ``engine_launch_seconds`` (no synchronise: the
+    engine runs ahead of the device); each device-to-host fetch counts
+    ``engine_host_syncs_total``. ``registry`` defaults to
+    ``obs.default_registry()``; ``tracer`` (default off) records the spans
+    ``collect_window``, ``apply``, ``host_sync`` and ``checkpoint``.
 
     ``capture_state=True`` attaches an ``EngineState`` snapshot to
     ``SimResult.final_state``; passing it back as ``init_state`` (same
@@ -175,12 +198,19 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
     k = fl.buffer_size
     beh = resolve_behavior(n, seed, behavior, scenario, latency, trace)
     ring_depth = fl.max_staleness + 1
-    num_launches = 0
+    reg = registry if registry is not None else default_registry()
+    tr = tracer if tracer is not None else NULL_TRACER
+    dispatches = reg.counter("engine_dispatches_total")
+    launch_hist = reg.histogram("engine_launch_seconds")
+    syncs = reg.counter("engine_host_syncs_total")
+    dispatches_start = dispatches.value
 
     def chunk_step(params, ring, base_slots, batches, probes, sizes, taus,
                    new_slots):
         """S whole rounds (K local trainings + eq. 3/4/5 each); the ring
         advances on the device between rounds."""
+        t0 = time.perf_counter()
+        dispatches.inc()
         infos = []
         for j, new_slot in enumerate(new_slots):
             params, ring, info = ring_round(
@@ -188,7 +218,9 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
                 tuple(b[j] for b in batches), tuple(p[j] for p in probes),
                 sizes[j], taus[j], new_slot)
             infos.append(torch.stack([info[f] for f in _LOG_FIELDS]))
-        return params, ring, torch.stack(infos)  # (S, fields, K)
+        out = params, ring, torch.stack(infos)  # (S, fields, K)
+        launch_hist.observe(time.perf_counter() - t0)
+        return out
 
     def to_device(tree):
         return tree_map(lambda v: torch.as_tensor(v).to(dev, copy=True), tree)
@@ -209,6 +241,10 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
             events.append((start + beh.duration(cid, start), cid))
         heapq.heapify(events)
     else:
+        if record_trace:
+            raise ValueError(
+                "record_trace cannot resume from a checkpoint: the duration "
+                "draws before the snapshot are not in the restored state")
         if len(init_state.base_version) != n:
             raise ValueError(
                 f"checkpoint has {len(init_state.base_version)} clients, "
@@ -233,6 +269,7 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
         heapq.heapify(events)
     ring_round = make_ring_round(loss_fn, fl, dev, spec)
     pending: List[Dict] = []  # per-chunk host metadata + device info handles
+    event_log: List = []
 
     def maybe_eval(force=False):
         record_eval(history, eval_fn, version, now, params, eval_every,
@@ -252,7 +289,7 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
             t, cid = heapq.heappop(events)
             num_events += 1
             # one atomic consume: the attempt's index AND its drop verdict
-            _, lost = beh.next_upload(cid)
+            upload_idx, lost = beh.next_upload(cid)
             if lost:
                 # upload lost: client re-pulls the current model, retrains
                 base_version[cid] = version
@@ -263,6 +300,7 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
                 bv = version  # resync: train from the current model, tau 0
                 base_version[cid] = version
             window.append((t, cid, bv, version - bv))
+            event_log.append((t, cid, upload_idx, version))
             if len(window) < k:
                 # no aggregation yet: re-pull the CURRENT version and go
                 base_version[cid] = version
@@ -300,27 +338,28 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
 
         # ---- host: pre-compute S windows of events ----------------------
         windows = []
-        for _ in range(s):
-            w = collect_window()
-            version += 1
-            # window clients re-pull: the K-th gets the NEW version
-            base_version[w["cid_trigger"]] = version
-            reschedule(w["cid_trigger"], w["t_trigger"])
-            windows.append(w)
+        with tr.span(SPAN_COLLECT, rounds=s, version=version):
+            for _ in range(s):
+                w = collect_window()
+                version += 1
+                # window clients re-pull: the K-th gets the NEW version
+                base_version[w["cid_trigger"]] = version
+                reschedule(w["cid_trigger"], w["t_trigger"])
+                windows.append(w)
 
         # ---- device: the S rounds, inputs moved in one transfer each ----
         put = lambda a: _to_device(a, dev)  # noqa: E731
-        params, ring, infos = chunk_step(
-            params, ring,
-            put(np.stack([w["base_slots"] for w in windows])),
-            tuple(put(np.stack([w["batches"][i] for w in windows]))
-                  for i in range(2)),
-            tuple(put(np.stack([w["probes"][i] for w in windows]))
-                  for i in range(2)),
-            put(np.stack([w["sizes"] for w in windows])),
-            put(np.asarray([w["tau"] for w in windows], np.float32)),
-            [(version - s + j + 1) % ring_depth for j in range(s)])
-        num_launches += 1
+        with tr.span(SPAN_APPLY, rounds=s, version=version):
+            params, ring, infos = chunk_step(
+                params, ring,
+                put(np.stack([w["base_slots"] for w in windows])),
+                tuple(put(np.stack([w["batches"][i] for w in windows]))
+                      for i in range(2)),
+                tuple(put(np.stack([w["probes"][i] for w in windows]))
+                      for i in range(2)),
+                put(np.stack([w["sizes"] for w in windows])),
+                put(np.asarray([w["tau"] for w in windows], np.float32)),
+                [(version - s + j + 1) % ring_depth for j in range(s)])
         # keep only the round-log metadata; the batch arrays would
         # otherwise pin O(total_rounds * K * batch) host memory
         pending.append({"windows": [{"clients": w["clients"], "tau": w["tau"]}
@@ -331,8 +370,11 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
 
     # ---- single device->host fetch for the whole run's round log --------
     round_log: List[Dict] = list(round_log_prefix)
+    with tr.span(SPAN_HOST_SYNC, what="round_log", launches=len(pending)):
+        syncs.inc()
+        fetched = (torch.cat([p["infos"] for p in pending]).cpu().numpy()
+                   if pending else None)
     if pending:
-        fetched = torch.cat([p["infos"] for p in pending]).cpu().numpy()
         row = 0
         for meta in pending:
             windows = meta["windows"]
@@ -343,17 +385,23 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
                 meta["v_end"] - len(windows), k,
                 [w["clients"] for w in windows],
                 [w["tau"] for w in windows], logs))
+    trace_out = (EventTrace.from_behavior(beh, event_log)
+                 if record_trace else None)
     final_state = None
     if capture_state:
-        final_state = EngineState(
-            version=version, now=now, num_events=num_events,
-            base_version=base_version.copy(), events=tuple(sorted(events)),
-            params=tree_map(lambda t: t.detach().cpu().numpy(), params),
-            ring=ring_state_to_host(fl, ring), behavior=beh.get_state(),
-            dataset_rng=np.stack([c.rng_state() for c in clients]),
-            history=[dict(h) for h in history],
-            round_log=[dict(r) for r in round_log])
+        with tr.span(SPAN_CHECKPOINT, version=version):
+            syncs.inc()
+            final_state = EngineState(
+                version=version, now=now, num_events=num_events,
+                base_version=base_version.copy(),
+                events=tuple(sorted(events)),
+                params=tree_map(lambda t: t.detach().cpu().numpy(), params),
+                ring=ring_state_to_host(fl, ring), behavior=beh.get_state(),
+                dataset_rng=np.stack([c.rng_state() for c in clients]),
+                history=[dict(h) for h in history],
+                round_log=[dict(r) for r in round_log])
     return SimResult(history=history, server_rounds=version, sim_time=now,
                      round_log=round_log, num_events=num_events,
-                     num_launches=num_launches, final_params=params,
+                     num_launches=int(dispatches.value - dispatches_start),
+                     trace=trace_out, final_params=params,
                      final_state=final_state)

@@ -58,3 +58,8 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 def tree_sub(a: Any, b: Any) -> Any:
     return tree_map(torch.sub, a, b)
 
+
+def tree_stack(trees: List[Any]) -> Any:
+    """Stack a list of same-structure trees along a new leading axis, leaf
+    by leaf (``repro.utils.pytree.tree_stack``)."""
+    return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)

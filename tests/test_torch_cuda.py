@@ -30,7 +30,7 @@ from repro_torch.kernels.ring_codec import ops as rc_ops
 from repro_torch.kernels.ring_codec import ref as rc_ref
 from repro_torch.kernels.ssm_scan import ops as ss_ops
 from repro_torch.kernels.ssm_scan import ref as ss_ref
-from repro_torch.kernels.weighted_agg import ops, ref
+from repro_torch.kernels.weighted_agg import kernel, ops, ref
 from repro_torch.models import Model, init_lenet, lenet_loss
 from repro_torch.sim.scenarios import get_scenario
 
@@ -170,6 +170,72 @@ def test_fused_server_refused_launch_raises(cuda):
     x, bases, deltas, p, taus, _ = _case(10_000, 1, cuda)
     with pytest.raises(RuntimeError, match="fused_server launch failed"):
         ops.server_update(x, bases, deltas, p, taus)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 2047, 2049, 44426, 130007, 600000])
+@pytest.mark.parametrize("k", [1, 3, 5, 64])
+def test_sq_dists_kernel_edges(cuda, k, n):
+    """K2, one launch with arrival tickets, at K = 1, K off the 2- and
+    4-row groups (3, 5) and many groups (64); N below one 2,048-element
+    tile, on each side of it, ragged and odd, and more than 256 tiles a row
+    (600,000). One launch a call; the distances equal K1's bit for bit in
+    every row-group size and in the cooperative alternative; a second call
+    gives the same bits (the tickets are zero again); within the plain
+    version's tolerance."""
+    x, bases, deltas, p, taus, _ = _case(k, n, cuda)
+    _, k1_dists, _ = ops.server_update(x, bases, deltas, p, taus)
+    ops.reset_launches()
+    d = ops.sq_dists(x, bases)
+    assert ops.sq_dists.launches == 1
+    assert torch.equal(d, k1_dists)
+    assert torch.equal(d, ops.sq_dists(x, bases))
+    for group in (1, 2, 4):
+        assert torch.equal(kernel.sq_dists(x, bases, group=group), d), group
+    assert torch.equal(kernel.sq_dists_cooperative(x, bases), d)
+    torch.testing.assert_close(d, ref.sq_dists_ref(x, bases), rtol=1e-4,
+                               atol=0.0)
+
+
+@pytest.mark.cuda
+def test_sq_dists_kernel_streams_keep_their_tickets(cuda):
+    """Calls back to back on two streams at once, each stream with its own
+    ticket buffer: every call gives the same bits."""
+    x, bases, *_ = _case(10, 49152, cuda)
+    want = ops.sq_dists(x, bases)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for _ in range(20):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(ops.sq_dists(x, bases))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+
+
+@pytest.mark.cuda
+def test_legacy_engine_on_card_matches_cpu(cuda):
+    """One round of the per-event legacy engine in batched mode: K2 and K3
+    once each, the round log within the engine tests' tolerance of the
+    CPU run."""
+    fl = FLConfig(num_clients=6, buffer_size=3, local_steps=2, batch_size=8,
+                  max_staleness=4, server_pass_mode="batched")
+    sc = get_scenario("paper-fig1")
+    init = init_lenet(torch.Generator().manual_seed(0))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        clients, _ = sc.make_dataset(6, samples_per_client=64, seed=0)
+        ops.reset_launches()
+        runs[device] = run_async(lenet_loss, init, clients, fl, 1, seed=0,
+                                 scenario=sc, engine="legacy", device=device)
+        if device == "cuda":
+            assert (ops.server_update.launches, ops.sq_dists.launches,
+                    ops.weighted_sum.launches) == (0, 1, 1)
+    a, b = runs["cuda"].round_log[0], runs["cpu"].round_log[0]
+    assert a["clients"] == b["clients"] and a["tau"] == b["tau"]
+    for f in ("sq_dists", "staleness_deg", "stat_effect", "weights"):
+        np.testing.assert_allclose(a[f], b[f], rtol=1e-3, atol=1e-6)
 
 
 @pytest.mark.cuda

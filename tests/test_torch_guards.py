@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.configs import get_arch, smoke_variant
 from repro_torch.configs.base import FLConfig
-from repro_torch.core import run_async, run_sync
+from repro_torch.core import AsyncServer, run_async, run_sync
 from repro_torch.core.version_store import build_ring
 from repro_torch.launch import serve
 from repro_torch.models import (
@@ -54,8 +54,11 @@ def test_port_imports_no_jax_and_no_repro(path):
 
 
 def test_import_pulls_in_neither_jax_nor_repro():
-    code = ("import sys, repro_torch.core, repro_torch.sim.engine, "
-            "repro_torch.sim.legacy, repro_torch.models, "
+    code = ("import sys, repro_torch.core, repro_torch.core.buffer, "
+            "repro_torch.core.server, repro_torch.sim.engine, "
+            "repro_torch.sim.legacy, repro_torch.sim.metrics, "
+            "repro_torch.obs, repro_torch.launch.quickstart, "
+            "repro_torch.models, "
             "repro_torch.models.model, repro_torch.launch.serve, "
             "repro_torch.kernels.flash_attn.ops, "
             "repro_torch.kernels.ssm_scan.ops; "
@@ -86,6 +89,10 @@ def test_entry_points_default_to_cuda_and_raise(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_async(lenet_loss, params, clients, fl, 1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_async(lenet_loss, params, clients, fl, 1, engine="legacy")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AsyncServer(params, fl, None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_sync(lenet_loss, params, clients, fl, 1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_jax({"w": [1.0]})
@@ -96,10 +103,12 @@ def test_entry_points_default_to_cuda_and_raise(no_cuda):
 
 def test_unported_engines_name_their_slice():
     params, clients, fl = _setup()
-    for engine in ("legacy", "population"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_async(lenet_loss, params, clients, fl, 1, engine=engine,
-                      device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_async(lenet_loss, params, clients, fl, 1, engine="population",
+                  device="cpu")
+    with pytest.raises(ValueError, match="unknown engine"):
+        run_async(lenet_loss, params, clients, fl, 1, engine="nope",
+                  device="cpu")
     with pytest.raises(NotImplementedError, match="Slice E"):
         build_ring(params, fl, mesh=object())
 
