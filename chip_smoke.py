@@ -40,11 +40,7 @@ Phases, in order; any failure raises and exits non-zero:
    profiled device time at the main-path shape and the memory-bound N.
    K2 is one launch a call (arrival tickets, one device operation); its
    distances equal K1's bit for bit at every shape, and two calls on
-   another stream give the same bits. K2's forms (tasks of 1, 2 and 4
-   rows, and the cooperative alternative) are held to the same bits and
-   timed against each other at (10, 49,152), (32, 130,007) and
-   (16, 16,777,219): profiled device time, and per call in a CUDA graph
-   of back-to-back calls (the gaps between launches included).
+   another stream give the same bits.
 4. Main path: ``repro_torch.core.run_async(engine="vectorized")`` at the
    paper's config (LeNet, 30 clients x 1500 samples, K=10, M=4, B=32,
    scenario paper-fig1, seed 0) for 10 rounds on the card in fused,
@@ -199,9 +195,6 @@ MAIN_SHAPE = (10, 49_152)  # what the main path gives the kernels
 # K1 at the memory-bound N, K2 at both
 PROFILED_TOO = {("weighted_sum", 32, 130_007), ("fused_server", 16, 16_777_219),
                 ("sq_dists", 32, 130_007), ("sq_dists", 16, 16_777_219)}
-# K2's forms timed against each other (PERF.md §6): tasks of 1, 2 or 4 rows
-# with arrival tickets, and the cooperative alternative
-K2_SHAPES = (MAIN_SHAPE, (32, 130_007), (16, 16_777_219))
 # the quickstart driver (launch/quickstart.py): 20 rounds, evals every 5
 QUICKSTART_EVALS = [0, 5, 10, 15, 20]
 # K4 shapes (K, N, qblock); the first is the int8 main path's
@@ -259,36 +252,6 @@ def time_burst(torch, fn, n: int = 100, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
-
-
-def time_graph(torch, fn, calls: int = 100, reps: int = 10) -> float:
-    """Milliseconds per call of ``calls`` back-to-back calls captured in one
-    CUDA graph and replayed (median of ``reps`` replays, CUDA events): the
-    device's time per call, the gaps between launches included, without
-    the host's dispatch."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()  # warm up on the capture stream (K2's ticket buffer)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    del graph
-    return statistics.median(times)
 
 
 def device_events(torch, averages):
@@ -532,38 +495,6 @@ def kernel_phases(torch, ops, ref, rate: float):
         del x, bases, deltas
         torch.cuda.empty_cache()
     return records
-
-
-def k2_forms_phase(torch, kernel, ops, rate: float):
-    """K2's forms against each other at K2_SHAPES: tasks of 1, 2 and 4 rows
-    (one launch, arrival tickets) and the cooperative alternative (K1's
-    front half: tasks of 4 rows, a grid barrier, the row sums). Each must
-    give the wrapper's bits; each is timed by ``torch.profiler`` (device
-    time per call) and in a CUDA graph (per call, gaps included). Returns
-    {(form, k, n): (profiled ms, graph ms)}."""
-    out = {}
-    for k, n in K2_SHAPES:
-        x, bases, *_ = make_inputs(torch, k, n, seed=k + n)
-        want = ops.sq_dists(x, bases)
-        forms = {f"tickets, {g} row{'s' * (g > 1)}":
-                 (lambda g=g: kernel.sq_dists(x, bases, group=g))
-                 for g in (1, 2, 4)}
-        forms["cooperative"] = lambda: kernel.sq_dists_cooperative(x, bases)
-        bound = (k + 1) * n * 4 / rate * 1e3
-        big = k * n >= 10**8
-        for form, fn in forms.items():
-            check(torch.equal(fn(), want), f"K2 {form} bits at {(k, n)}")
-            ms, ops_per_call, _ = profiled_ms(torch, fn, 5 if big else 20)
-            graph = time_graph(torch, fn, 10 if big else 100, 3 if big else 10)
-            out[(form, k, n)] = (ms, graph)
-            share = "n/a" if not ms else f"{100 * bound / ms:.0f}%"
-            print(f"  K2 {form:16s} K={k:3d} N={n:>10,d}: profiled "
-                  f"{'n/a' if ms is None else f'{ms:.5f}'} ms "
-                  f"({ops_per_call:g} ops, {share} of the "
-                  f"{bound:.4f} ms bound); CUDA graph {graph:.5f} ms a call")
-        del x, bases
-        torch.cuda.empty_cache()
-    return out
 
 
 def int8_kernel_phase(torch, rc_ops, rc_ref, ops, rate: float):
@@ -991,9 +922,6 @@ def main() -> int:
     # 3. kernel phases
     print("kernel phases (median of 30 calls, CUDA events):")
     records = kernel_phases(torch, ops, ref, rate)
-    print("K2's forms (profiled: 20 calls, 5 at N = 16.8M; CUDA graph: 100 "
-          "calls, 10 at N = 16.8M):")
-    k2_forms_phase(torch, kernel, ops, rate)
     int8_records = int8_kernel_phase(torch, rc_ops, rc_ref, ops, rate)
 
     # 4. main path: the paper's Fig. 1 config on the card

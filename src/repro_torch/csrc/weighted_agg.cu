@@ -21,7 +21,7 @@
 //
 // K2 (sq_dist_kernel<group>) is one ordinary launch of a block per task; a
 // task is K1's phase-0 task (dist_task): one 2048-element tile of x against
-// a group of 1, 2 or 4 rows, x loaded once for the group and all of the
+// a group of 1 or 4 rows, x loaded once for the group and all of the
 // group's loads in flight before any arithmetic. Tasks run the group
 // fastest, so the blocks of one tile share it through L2. A block writes its
 // group's partials, fences, and takes an arrival ticket on the group's
@@ -29,10 +29,10 @@
 // are zero again for the next call). The block that draws the last ticket
 // sums each row of the group in row_sum's order (group_row_sums) and writes
 // dists; the others exit at once: no grid barrier, no second launch. The
-// group size is the wrapper's, from the shape (kernel.py). The cooperative
-// form (sq_dist_cooperative_kernel: K1's front half, grid-stride tasks, one
-// grid barrier, sum_rows) is the measured alternative; chip_smoke.py times
-// both (PERF.md §6).
+// group size is the wrapper's, from the shape (kernel.py): 4 rows where
+// those tasks give every SM a block, else 1. Groups of 2 rows and a
+// cooperative form (K1's front half) were measured and not kept (PERF.md
+// §6, PR 17).
 //
 // K1 (fused_server_kernel) is one cooperative launch of min(work,
 // co-resident) 256-thread blocks (block_reduce.cuh::launch_cooperative);
@@ -260,27 +260,6 @@ sq_dist_kernel(const float* __restrict__ x, const float* __restrict__ bases, flo
   group_row_sums<kGroup>(partials, dists, k_rows, tiles, g * kGroup, gsums);
 }
 
-// The measured alternative to K2 (chip_smoke.py): K1's front half as one
-// cooperative launch -- grid-stride tasks of kDistGroup rows, one grid
-// barrier, then block b sums rows b, b + gridDim.x, ... (sum_rows).
-__global__ void __launch_bounds__(kThreads, kFusedMinBlocks)
-sq_dist_cooperative_kernel(const float* __restrict__ x, const float* __restrict__ bases,
-                           float* partials, float* dists, int64_t k_rows, int64_t n,
-                           int64_t tiles) {
-  __shared__ float smem[kWarps];
-  __shared__ float gsums[2][kDistGroup][kWarps];
-  const int64_t groups = div_index(k_rows + kDistGroup - 1, kDistGroup);
-  int buf = 0;
-  for (int64_t task = blockIdx.x; task < tiles * groups; task += gridDim.x) {
-    const int64_t t = div_index(task, groups);
-    dist_task<kDistGroup>(x, bases, partials, k_rows, n, tiles, t,
-                          (task - t * groups) * kDistGroup, gsums[buf]);
-    buf ^= 1;
-  }
-  grid_barrier();
-  sum_rows(partials, dists, k_rows, tiles, smem);
-}
-
 // Where K3's body reads the weights: global memory (K3) or shared (K1).
 struct GlobalWeights {
   const float* __restrict__ w;
@@ -504,7 +483,6 @@ fused_server_kernel(const float* __restrict__ x, const float* __restrict__ bases
 }
 
 Residency fused_residency[2];  // per instance: scalar, float4
-Residency cooperative_residency;  // K2's measured alternative
 
 // float4 loads need every row start (rows + k * n) and out 16-byte aligned
 bool aligned4(const float* rows, const float* out, int64_t n) {
@@ -528,7 +506,7 @@ const char* wa_error_string(int code) {
 }
 
 // K2 in one launch: dists (K,) = ||x - b_k||^2 from tasks of `group` rows
-// (1, 2 or 4). partials is (K, wa_dist_tiles(n)) scratch; counters holds
+// (1 or 4). partials is (K, wa_dist_tiles(n)) scratch; counters holds
 // ceil(K / group) arrival tickets, zero before the call and zero again after
 // it, used by one stream at a time.
 int wa_sq_dists(const float* x, const float* bases, float* partials, unsigned int* counters,
@@ -543,10 +521,6 @@ int wa_sq_dists(const float* x, const float* bases, float* partials, unsigned in
       sq_dist_kernel<1><<<blocks, kThreads, 0, s>>>(x, bases, partials, counters, dists,
                                                      k_rows, n, tiles, groups);
       break;
-    case 2:
-      sq_dist_kernel<2><<<blocks, kThreads, 0, s>>>(x, bases, partials, counters, dists,
-                                                     k_rows, n, tiles, groups);
-      break;
     case 4:
       sq_dist_kernel<4><<<blocks, kThreads, 0, s>>>(x, bases, partials, counters, dists,
                                                      k_rows, n, tiles, groups);
@@ -555,19 +529,6 @@ int wa_sq_dists(const float* x, const float* bases, float* partials, unsigned in
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
-}
-
-// The measured alternative to wa_sq_dists: one cooperative launch of
-// min(tasks, co-resident) blocks. A refused launch returns its error.
-int wa_sq_dists_cooperative(const float* x, const float* bases, float* partials,
-                            float* dists, int64_t k_rows, int64_t n, void* stream) {
-  if (k_rows < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  int64_t tiles = wa_dist_tiles(n);
-  const int64_t tasks = tiles * ((k_rows + kDistGroup - 1) / kDistGroup);
-  const int64_t work = tasks > k_rows ? tasks : k_rows;  // row sums: a block a row
-  void* args[] = {&x, &bases, &partials, &dists, &k_rows, &n, &tiles};
-  return (int)launch_cooperative(sq_dist_cooperative_kernel, work, 0, cooperative_residency,
-                                 args, stream);
 }
 
 int wa_weighted_sum(const float* deltas, const float* w, float* out, int64_t k_rows,

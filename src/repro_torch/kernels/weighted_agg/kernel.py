@@ -33,7 +33,6 @@ LIBRARY = CudaLibrary("weighted_agg", {
     "wa_dist_tiles": (_i64, [_i64]),
     "wa_error_string": (ctypes.c_char_p, [_i32]),
     "wa_sq_dists": (_i32, [_p, _p, _p, _p, _p, _i64, _i64, _i32, _p]),
-    "wa_sq_dists_cooperative": (_i32, [_p, _p, _p, _p, _i64, _i64, _p]),
     "wa_weighted_sum": (_i32, [_p, _p, _p, _i64, _i64, _p]),
     "wa_fused_server": (_i32, [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i64,
                                _i64, _i32, _i32, _f32, _f32, _f32, _f32, _f32,
@@ -76,39 +75,32 @@ def _partials(lib, k: int, n: int, device: torch.device) -> torch.Tensor:
                        device=device)
 
 
-def sq_dists(x: torch.Tensor, bases: torch.Tensor,
-             group: Optional[int] = None) -> torch.Tensor:
-    """K2: (K,) ||x - b_k||^2 in one launch: tasks of ``group`` rows
-    (``_dist_group``'s choice unless given), each row summed by the block
-    that draws its group's last arrival ticket."""
+def sq_dists(x: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
+    """K2: (K,) ||x - b_k||^2 in one launch: tasks of ``_dist_group``'s
+    rows, each row summed by the block that draws its group's last arrival
+    ticket.
+
+    The tickets are right only if they are zero when a call starts, which
+    every completed call leaves them. So a call is refused while the stream
+    is being captured into a CUDA graph: a replay on another stream would
+    draw from the capture stream's counters. A launch that faults part-way
+    leaves the CUDA context unusable, and with it these counters.
+    """
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("sq_dists: K2's arrival tickets are per stream; "
+                           "it cannot be captured in a CUDA graph")
     lib = LIBRARY.load()
     k, n = bases.shape
     dev = bases.device
     with torch.cuda.device(dev):
         partials = _partials(lib, k, n, dev)
-        group = group or _dist_group(k, partials.shape[1], dev)
+        group = _dist_group(k, partials.shape[1], dev)
         s = _stream(bases)
         tickets = _tickets(dev, s, -(-k // group))
         out = torch.empty((k,), dtype=torch.float32, device=dev)
         LIBRARY.check(lib, lib.wa_sq_dists(
             x.data_ptr(), bases.data_ptr(), partials.data_ptr(),
             tickets.data_ptr(), out.data_ptr(), k, n, group, s), "sq_dists")
-    return out
-
-
-def sq_dists_cooperative(x: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
-    """K2's measured alternative (``chip_smoke.py`` only): K1's front half
-    as one cooperative launch, tasks of 4 rows, a grid barrier, the row
-    sums. The same bits as ``sq_dists``."""
-    lib = LIBRARY.load()
-    k, n = bases.shape
-    dev = bases.device
-    with torch.cuda.device(dev):
-        out = torch.empty((k,), dtype=torch.float32, device=dev)
-        LIBRARY.check(lib, lib.wa_sq_dists_cooperative(
-            x.data_ptr(), bases.data_ptr(),
-            _partials(lib, k, n, dev).data_ptr(), out.data_ptr(), k, n,
-            _stream(bases)), "sq_dists_cooperative")
     return out
 
 

@@ -176,13 +176,13 @@ def test_fused_server_refused_launch_raises(cuda):
 @pytest.mark.parametrize("n", [1, 1000, 2047, 2049, 44426, 130007, 600000])
 @pytest.mark.parametrize("k", [1, 3, 5, 64])
 def test_sq_dists_kernel_edges(cuda, k, n):
-    """K2, one launch with arrival tickets, at K = 1, K off the 2- and
-    4-row groups (3, 5) and many groups (64); N below one 2,048-element
-    tile, on each side of it, ragged and odd, and more than 256 tiles a row
-    (600,000). One launch a call; the distances equal K1's bit for bit in
-    every row-group size and in the cooperative alternative; a second call
-    gives the same bits (the tickets are zero again); within the plain
-    version's tolerance."""
+    """K2, one launch with arrival tickets, at K = 1, K off the 4-row
+    groups (3, 5) and many groups (64); N below one 2,048-element tile, on
+    each side of it, ragged and odd, and more than 256 tiles a row
+    (600,000), so the wrapper takes tasks of 1 row at some shapes and of 4
+    at others. One launch a call; the distances equal K1's bit for bit; a
+    second call gives the same bits (the tickets are zero again); within
+    the plain version's tolerance."""
     x, bases, deltas, p, taus, _ = _case(k, n, cuda)
     _, k1_dists, _ = ops.server_update(x, bases, deltas, p, taus)
     ops.reset_launches()
@@ -190,9 +190,6 @@ def test_sq_dists_kernel_edges(cuda, k, n):
     assert ops.sq_dists.launches == 1
     assert torch.equal(d, k1_dists)
     assert torch.equal(d, ops.sq_dists(x, bases))
-    for group in (1, 2, 4):
-        assert torch.equal(kernel.sq_dists(x, bases, group=group), d), group
-    assert torch.equal(kernel.sq_dists_cooperative(x, bases), d)
     torch.testing.assert_close(d, ref.sq_dists_ref(x, bases), rtol=1e-4,
                                atol=0.0)
 
@@ -212,6 +209,18 @@ def test_sq_dists_kernel_streams_keep_their_tickets(cuda):
                 outs.append(ops.sq_dists(x, bases))
     torch.cuda.synchronize()
     assert all(torch.equal(o, want) for o in outs)
+
+
+@pytest.mark.cuda
+def test_sq_dists_kernel_refuses_graph_capture(cuda):
+    """K2's tickets belong to the stream a call runs on, so a call inside a
+    CUDA graph capture raises rather than tie a graph to them."""
+    x, bases, *_ = _case(10, 49152, cuda)
+    side = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph, stream=side):
+            kernel.sq_dists(x, bases)
 
 
 @pytest.mark.cuda
