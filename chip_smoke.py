@@ -70,6 +70,29 @@ Phases, in order; any failure raises and exits non-zero:
    with ``capture_state``, ``save_checkpoint``/``load_checkpoint``,
    resumed to 10, bit-identical to the uninterrupted run (cuDNN
    deterministic).
+6b. Slice C. The cohort step (``make_cohort_step``) at the paper config
+   (C = K = 10 slots, M = 4, B = 32) for 10 rounds of seeded arrival masks
+   (stragglers; a round without the fresh slots; every slot arrived) in
+   fused (K1 once a round), batched (K2 and K3 once a round) and reference
+   modes on the card and reference on the CPU, params and telemetry round
+   for round; ``make_dist_step`` for 2 x K contributions, card against CPU;
+   ``aggregate_fused`` (one K3 launch) against ``aggregate``. Every
+   kernel's counter is read after each of these runs, so the cohort's
+   launches of K4-K6 (none) are measured too. Then, with cuDNN
+   deterministic: ``serve_fl --transport inproc`` at the JAX launcher's
+   defaults on the card, in a process of its own under the launcher's own
+   backend flags, and in process on the CPU (the same counters, K
+   trajectory, version and fold journal; params within the path
+   tolerances); the fold and apply wall times; the serving-vs-exact gate
+   for every policy with the exact side in fused mode (K1); ``serve_fl
+   --transport tcp`` with three ``client_fl`` processes and its journal
+   replayed by ``serve_fl --replay-journal`` (the same ``params_sha256``;
+   a client may exit non-zero only with the transport error of the
+   shutdown race, and one at least must exit 0); the http twin (served
+   params byte-identical). Prints uploads folded per
+   wall second, the round-latency p50/p99 on the sim clock, fold and apply
+   ms and the cohort's rounds/s per mode beside the card's name and power
+   limit.
 7. K5 (flash attention) against its plain version at Hymba-1.5B's shapes
    (B=2, S=4096, 25 query and 5 kv heads, D=64) in bf16 and f32, window
    1024 and 0 (causal), a ragged S (3001) and an S shorter than the window
@@ -92,13 +115,16 @@ Phases, in order; any failure raises and exits non-zero:
    cache wraps); ``launch/serve.py`` at full depth (batch 4, prompt 32,
    gen 16).
 
-The last two lines of standard output are the kernels' JSON record and
+The last two lines of standard output are the kernels' JSON record (with
+each of K1-K3's launches in the cohort run beside the main path's) and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -202,6 +228,38 @@ INT8_SHAPES = ((10, 49_152, 256), (32, 130_048, 128), (4, 640, 64),
                (16, 16_777_216, 256))
 # ring bytes of the paper config (LeNet, n_padded 49,152, R = 33)
 RING_BYTES = {"f32": 6_488_064, "int8": 1_672_704, "delta": 845_524}
+# Slice C. The cohort step at the paper config (C = K = 10 slots, M = 4,
+# B = 32) for 10 rounds of seeded arrival masks; the dist step for 2 x K
+# contributions. serve_fl at the JAX launcher's defaults (paper-fig1, 32
+# clients x 64, K0 = 8 adaptive, M = 1, B = 8, 20 rounds); over sockets a
+# fixed K = 8 for 4 rounds with 3 client processes, each offering at most 16
+# uploads. The serving-vs-exact gate holds the served aggregate to
+# apply_server_round within rtol 2e-5 / atol 1e-6 (the JAX package's
+# tests/test_serving.py), on the 4-parameter quadratic problem.
+COHORT_ROUNDS = 10
+SERVE_ARGS = ["--scenario", "paper-fig1", "--clients", "32",
+              "--samples-per-client", "64", "--log-level", "warning"]
+SOCKET_ROUNDS, SOCKET_CLIENTS = 4, 3
+# how a client_fl that pulls after the server shut down ends (the shutdown
+# race): its last stderr line names the transport's connection error
+SHUTDOWN_RACE = re.compile(
+    r"^(repro_torch\.transport\.client\.TransportError|ConnectionError|"
+    r"ConnectionRefusedError|ConnectionResetError|BrokenPipeError): ")
+# serve_fl.run in a process of its own, as `python -m
+# repro_torch.launch.serve_fl ARGS` runs it, saving the served params
+SERVE_AND_SAVE = """\
+import sys
+import numpy as np
+from repro_torch.core.serving import tree_to_wire
+from repro_torch.launch import serve_fl
+args = serve_fl.build_parser().parse_args(sys.argv[2:])
+ctrl, _ = serve_fl.run(args)
+assert ctrl.params["f3"]["w"].device.type == args.device, "params moved"
+tensors = {}
+tree_to_wire("params", ctrl.params, tensors)
+np.savez(sys.argv[1], **tensors)
+"""
+GATE_RTOL, GATE_ATOL = 2e-5, 1e-6
 
 
 def check(cond: bool, msg: str) -> None:
@@ -834,6 +892,498 @@ def compare_runs(np, a, b, what: str) -> None:
           f"final params max abs diff {err:.3g} (limit {PARAM_ATOL})")
 
 
+def cohort_inputs(np, clients, c: int, m: int, b: int, seed: int = 0):
+    """Host batches of ``COHORT_ROUNDS`` cohort rounds. Slot s serves one
+    client until it arrives, then the next client in turn. Masks from a
+    seeded generator: round 0 and the last round every slot arrives; round
+    1 has stragglers; round 2 drops the slots that arrived in round 1 (its
+    fresh, tau = 0 slots), so eq. 3's min runs over stale slots only."""
+    rng = np.random.default_rng(seed)
+    masks = []
+    for r in range(COHORT_ROUNDS):
+        if r in (0, COHORT_ROUNDS - 1):
+            mask = np.ones(c, np.float32)
+        elif r == 2:
+            mask = 1.0 - masks[1]
+        else:
+            mask = np.zeros(c, np.float32)
+            while not 0 < mask.sum() < c:
+                mask = (rng.random(c) < 0.6).astype(np.float32)
+        masks.append(mask)
+    slot_client, nxt, rounds = list(range(c)), c, []
+    for mask in masks:
+        local = [clients[cid].batches(b, m) for cid in slot_client]
+        probe = [clients[cid].batch(b) for cid in slot_client]
+        rounds.append({
+            "local": tuple(np.stack([x[i] for x in local]) for i in (0, 1)),
+            "probe": tuple(np.stack([x[i] for x in probe]) for i in (0, 1)),
+            "arrival": mask,
+            "data_sizes": np.asarray([clients[cid].size
+                                      for cid in slot_client], np.float32)})
+        for slot in np.flatnonzero(mask):
+            slot_client[slot] = nxt % len(clients)
+            nxt += 1
+    return rounds
+
+
+def trees_close(np, a, b, rtol: float, atol: float) -> float:
+    """Max abs difference of two nested dicts of tensors; checks allclose."""
+    err = 0.0
+    for layer in b:
+        for key in b[layer]:
+            x, y = a[layer][key].cpu().numpy(), b[layer][key].cpu().numpy()
+            check(np.allclose(x, y, rtol=rtol, atol=atol),
+                  f"{layer}/{key} differs by {np.abs(x - y).max()}")
+            err = max(err, float(np.abs(x - y).max()))
+    return err
+
+
+def slice_c_phase(torch, np, kernel_ops, dataset, init, device: str):
+    """The cohort step, the dist step, aggregate_fused, the serving loop in
+    process and over sockets; returns the cohort's launch counts of every
+    kernel (``kernel_ops``: the ops modules of weighted_agg, ring_codec,
+    flash_attn and ssm_scan)."""
+    from repro_torch.configs import PAPER_FL
+    from repro_torch.core import (
+        aggregate,
+        aggregate_fused,
+        init_cohort_state,
+        init_dist_state,
+        make_cohort_step,
+        make_dist_step,
+    )
+    from repro_torch.models import lenet_loss
+
+    ops, rc_ops, fa_ops, ss_ops = kernel_ops
+
+    def reset_launches():
+        for module in kernel_ops:
+            module.reset_launches()
+
+    def launches():
+        return {"fused_server": ops.server_update.launches,
+                "sq_dists": ops.sq_dists.launches,
+                "weighted_sum": ops.weighted_sum.launches,
+                "int8_sq_dists": rc_ops.int8_sq_dists.launches,
+                "flash_attention": fa_ops.flash_attention.launches,
+                "selective_scan": ss_ops.selective_scan.launches}
+
+    none = dict.fromkeys(SOURCES, 0)
+
+    # cohort step: fused, batched and reference on the card, reference on
+    # the CPU, round for round
+    clients, _ = dataset()
+    c, m, b = PAPER_FL.buffer_size, PAPER_FL.local_steps, PAPER_FL.batch_size
+    rounds = cohort_inputs(np, clients, c, m, b)
+    arrivals = [int(r["arrival"].sum()) for r in rounds]
+    print(f"cohort step: paper config, C = K = {c}, M = {m}, B = {b}, "
+          f"{COHORT_ROUNDS} rounds, arrivals per round {arrivals}")
+
+    def cohort(mode, dev):
+        fl = dataclasses.replace(PAPER_FL, server_pass_mode=mode)
+        step = make_cohort_step(lenet_loss, fl, device=dev)
+        state = init_cohort_state({l: {k: v.to(dev) for k, v in p.items()}
+                                   for l, p in init.items()}, c)
+        reset_launches()
+        t = time.perf_counter()
+        out = []
+        for batch in rounds:
+            state, mets = step(state, batch)
+            out.append((state.global_params, mets))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = launches()
+        out = [(p, {k: float(v) for k, v in mets.items()}) for p, mets in out]
+        print(f"  cohort {mode:9s} on {dev}: {COHORT_ROUNDS / dt:.2f} "
+              f"rounds/s ({dt:.3f} s), launches {counts}")
+        check(all(np.isfinite(list(mets.values())).all() for _, mets in out),
+              f"cohort {mode}: telemetry not finite")
+        return out, counts, COHORT_ROUNDS / dt
+
+    cohort("fused", device)  # warm-up
+    runs = {mode: cohort(mode, device)
+            for mode in ("fused", "batched", "reference")}
+    cpu_run = cohort("reference", "cpu")
+    counts = {mode: run[1] for mode, run in runs.items()}
+    check(counts["fused"] == {**none, "fused_server": COHORT_ROUNDS},
+          f"cohort fused {counts}")
+    check(counts["batched"] == {**none, "sq_dists": COHORT_ROUNDS,
+                                "weighted_sum": COHORT_ROUNDS},
+          f"cohort batched {counts}")
+    check(counts["reference"] == none and cpu_run[1] == none,
+          f"cohort reference {counts}, on the CPU {cpu_run[1]}")
+    # the cohort's launches of each kernel: its three runs on the card
+    cohort_launches = {k: sum(c[k] for c in counts.values()) for k in none}
+    for name, (other, _, _) in list(runs.items())[1:] + [("cpu", cpu_run)]:
+        err = 0.0
+        for r, ((pa, ma), (pb, mb)) in enumerate(zip(runs["fused"][0],
+                                                     other)):
+            for key in ma:
+                check(np.isclose(ma[key], mb[key], rtol=PATH_RTOL,
+                                 atol=PATH_ATOL),
+                      f"cohort fused vs {name}, round {r}: {key} "
+                      f"{ma[key]} vs {mb[key]}")
+            err = max(err, trees_close(np, pa, pb, PATH_RTOL, PATH_ATOL))
+        print(f"  cohort fused vs {name}: params and telemetry within rtol "
+              f"{PATH_RTOL}, atol {PATH_ATOL} every round; params max abs "
+              f"diff {err:.3g}")
+    last = runs["fused"][0][-1][1]
+    print(f"  last round: {last}")
+    cohort_rates = {mode: run[2] for mode, run in runs.items()}
+
+    # dist step: 2 x K contributions, card against CPU
+    rng = np.random.default_rng(1)
+    contributions = [{"local": clients[i % len(clients)].batches(b, m),
+                      "probe": clients[i % len(clients)].batch(b),
+                      "tau": int(rng.integers(0, 4)),
+                      "data_size": float(clients[i % len(clients)].size)}
+                     for i in range(2 * c)]
+    dist = {}
+    for dev in (device, "cpu"):
+        step = make_dist_step(lenet_loss, PAPER_FL, device=dev)
+        state = init_dist_state({l: {k: v.to(dev) for k, v in p.items()}
+                                 for l, p in init.items()}, PAPER_FL)
+        reset_launches()
+        vs = []
+        for batch in contributions:
+            state, mets = step(state, batch)
+            vs.append(float(mets["v_weight"]))
+        check(launches() == none,
+              f"dist step: the streaming round reaches no kernel, "
+              f"{launches()}")
+        dist[dev] = (state, np.asarray(vs))
+    (st, vs), (st_cpu, vs_cpu) = dist[device], dist["cpu"]
+    check(st.version == st_cpu.version == 2 and st.count == 0,
+          f"dist step: version {st.version}, count {st.count}")
+    check(np.allclose(vs, vs_cpu, rtol=PATH_RTOL, atol=PATH_ATOL),
+          f"dist step weights {vs} vs {vs_cpu}")
+    err = trees_close(np, st.global_params, st_cpu.global_params, PATH_RTOL,
+                      PATH_ATOL)
+    print(f"  dist step, {2 * c} contributions: 2 applies; card vs CPU "
+          f"weights and params within rtol {PATH_RTOL}, atol {PATH_ATOL} "
+          f"(params max abs diff {err:.3g})")
+
+    # aggregate_fused: one K3 launch against aggregate
+    g = torch.Generator().manual_seed(2)
+    params = {l: {k: v.to(device) for k, v in p.items()}
+              for l, p in init.items()}
+    deltas = {l: {k: (0.01 * torch.randn((c,) + tuple(v.shape),
+                                         generator=g)).to(device)
+                  for k, v in p.items()} for l, p in init.items()}
+    w = (0.5 + torch.rand(c, generator=g)).to(device)
+    reset_launches()
+    new_f, upd_f = aggregate_fused(params, deltas, w, PAPER_FL.global_lr, c)
+    check(launches() == {**none, "weighted_sum": 1},
+          f"aggregate_fused: one K3 launch, {launches()}")
+    new_a, upd_a = aggregate(params, deltas, w, PAPER_FL.global_lr, c)
+    err = trees_close(np, upd_f, upd_a, KERNEL_RTOL, 1e-7)
+    trees_close(np, new_f, new_a, SUM_RTOL, 1e-7)
+    print(f"  aggregate_fused: 1 K3 launch, update within rtol {KERNEL_RTOL} "
+          f"of aggregate's (max abs diff {err:.3g})")
+
+    # deterministic cuDNN, as serve_fl sets it for a journaled run (the
+    # http twin compares two controllers of this process bit for bit);
+    # the previous flags go back afterwards
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        serving = serving_phase(torch, np, ops, device)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    return {"launches": cohort_launches, "rates": cohort_rates, **serving}
+
+
+def serving_phase(torch, np, ops, device: str):
+    """serve_fl on the card in a process of its own and on the CPU in
+    this one, the serving-vs-exact gate in fused mode, fold and apply
+    times, serve_fl/client_fl over tcp with a journal replay, and the http
+    twin."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import ServeConfig, ServingController
+    from repro_torch.core.serving import tree_to_wire
+    from repro_torch.core.weighting import POLICIES
+    from repro_torch.launch import serve_fl
+    from repro_torch.models import init_lenet, lenet_loss
+    from repro_torch.sim import draw_upload, get_scenario
+    from repro_torch.transport import wire
+    from repro_torch.transport.client import RemoteAggregator
+    from repro_torch.transport.server import AggregatorServer
+
+    print("serving: serve_fl --transport inproc at the launcher's defaults "
+          "(paper-fig1, 32 clients x 64, K0 = 8 adaptive, M = 1, B = 8, "
+          "20 rounds; journaled, so cudnn.deterministic), on the card in a "
+          "process of its own, on the CPU in this one")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    (ROOT / "build").mkdir(exist_ok=True)
+
+    def folds_of(path):
+        with open(path) as f:
+            return [(e["cid"], e["seq"], e["tau"])
+                    for e in map(json.loads, f)]
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path, saved = Path(tmp) / "folds_card.jsonl", Path(tmp) / "card.npz"
+        proc = subprocess.run(
+            [sys.executable, "-c", SERVE_AND_SAVE, str(saved), *SERVE_ARGS,
+             "--device", device, "--journal-out", str(path), "--json"],
+            env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0,
+              f"serve_fl on {device}: exit {proc.returncode}, "
+              f"{proc.stderr[-2000:]}")
+        out, folds = json.loads(proc.stdout), folds_of(path)
+        with np.load(saved) as z:
+            card_params = {k: z[k] for k in z.files}
+        path = Path(tmp) / "folds_cpu.jsonl"
+        cpu_ctrl, cpu_out = serve_fl.run(serve_fl.build_parser().parse_args(
+            SERVE_ARGS + ["--device", "cpu", "--journal-out", str(path)]))
+        cpu_folds = folds_of(path)
+    cpu_out = json.loads(json.dumps(cpu_out))  # as the card's run printed it
+    for key in ("admitted", "rejected_queue_full", "dropped_stale_ingress",
+                "dropped_stale_queue", "folded", "rounds", "version",
+                "k_history", "round_latency_p50", "round_latency_p99"):
+        check(out[key] == cpu_out[key],
+              f"serving {key}: {out[key]} vs {cpu_out[key]}")
+    check(folds == cpu_folds and len(folds) == out["folded"],
+          "serving fold journals differ")
+    cpu_params = {}
+    tree_to_wire("params", cpu_ctrl.params, cpu_params)
+    check(card_params.keys() == cpu_params.keys(), "serving params' names")
+    err = 0.0
+    for k, x in cpu_params.items():
+        check(np.allclose(card_params[k], x, rtol=PATH_RTOL, atol=PATH_ATOL),
+              f"serving params {k} differ by "
+              f"{np.abs(card_params[k] - x).max()}")
+        err = max(err, float(np.abs(card_params[k] - x).max()))
+    print(f"  card vs CPU: counters, K trajectory {out['k_history']}, "
+          f"version {out['version']} and the journal of {len(folds)} folds "
+          f"identical; params max abs diff {err:.3g} (rtol {PATH_RTOL}, "
+          f"atol {PATH_ATOL})")
+    serve = {"uploads_per_s": out["uploads_per_sec"],
+             "cpu_uploads_per_s": cpu_out["uploads_per_sec"],
+             "p50": out["round_latency_p50"], "p99": out["round_latency_p99"]}
+
+    # fold and apply wall time on the card: K - 1 folds, then one fold and
+    # the apply, each pump between synchronisations
+    sc = get_scenario("paper-fig1")
+    clients, _ = sc.make_dataset(32, samples_per_client=64, seed=0)
+    fl = FLConfig(num_clients=32, buffer_size=8, max_staleness=12,
+                  local_steps=1, batch_size=8)
+    timed = ServingController(lenet_loss, init_lenet(
+        torch.Generator().manual_seed(0)), fl, ServeConfig(adapt_every=0),
+        device=device)
+    fold_ms, apply_ms = [], []
+    for rnd in range(4):
+        ups = [draw_upload(clients[i], i, fl, base_version=timed.version,
+                           t=0.0) for i in range(8 * rnd, 8 * rnd + 8)]
+        for up in ups[:-1]:
+            timed.offer(up, 0.0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        timed.pump(0.0)
+        torch.cuda.synchronize()
+        fold = (time.perf_counter() - t) / 7 * 1e3
+        timed.offer(ups[-1], 0.0)
+        t = time.perf_counter()
+        timed.pump(0.0)
+        torch.cuda.synchronize()
+        if rnd:  # round 0 warms up
+            fold_ms.append(fold)
+            apply_ms.append((time.perf_counter() - t) * 1e3 - fold)
+    check(timed.version == 4, f"timed controller version {timed.version}")
+    serve["fold_ms"] = statistics.median(fold_ms)
+    serve["apply_ms"] = statistics.median(apply_ms)
+
+    # the serving-vs-exact gate with the exact side in fused mode (K1)
+    ops.reset_launches()
+    for policy in POLICIES:
+        serving_gate(torch, np, policy, device)
+    check(ops.server_update.launches == 3 * len(POLICIES),
+          f"gate K1 launches {ops.server_update.launches}")
+    print(f"  serving vs apply_server_round (fused, K1 {3 * len(POLICIES)} "
+          f"launches): every policy, 3 rounds, within rtol {GATE_RTOL}, "
+          f"atol {GATE_ATOL}")
+
+    # over sockets: serve_fl tcp + client_fl processes, then the replay
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        port_file, journal = Path(tmp) / "port", Path(tmp) / "folds.jsonl"
+        cmd = [sys.executable, "-m"]
+        procs = [subprocess.Popen(
+            cmd + ["repro_torch.launch.serve_fl", *SERVE_ARGS, "--device",
+                   device, "--transport", "tcp", "--port", "0",
+                   "--port-file", str(port_file), "--adapt-every", "0",
+                   "--rounds", str(SOCKET_ROUNDS), "--journal-out",
+                   str(journal), "--max-wall-time", "240", "--json"],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE, text=True)]
+        # clients draw numpy batches and never touch a device: they run
+        # with no card visible
+        procs += [subprocess.Popen(
+            cmd + ["repro_torch.launch.client_fl", *SERVE_ARGS, "--cid",
+                   str(cid), "--port-file", str(port_file), "--port-wait",
+                   "180", "--uploads", "16", "--stop-at-version",
+                   str(SOCKET_ROUNDS)],
+            env=dict(env, CUDA_VISIBLE_DEVICES=""), cwd=ROOT,
+            stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for cid in range(SOCKET_CLIENTS)]
+        try:
+            outs, errs = zip(*[p.communicate(timeout=300) for p in procs])
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        check(procs[0].returncode == 0,
+              f"tcp server exit code {procs[0].returncode}")
+        live = json.loads(outs[0])
+        check(live["version"] >= SOCKET_ROUNDS,
+              f"tcp server stopped at version {live['version']}")
+        # a client that pulls after the server reached its rounds and shut
+        # down loses the race and exits non-zero with the transport's
+        # connection error: fine; any other exit, or a hung client, is not
+        admitted = []
+        for p, o, e in zip(procs[1:], outs[1:], errs[1:]):
+            if p.returncode == 0:
+                admitted.append(json.loads(o)["admitted"])
+                continue
+            last = (e.strip().splitlines() or [""])[-1]
+            check(SHUTDOWN_RACE.match(last) is not None,
+                  f"client_fl exit {p.returncode}: {e[-2000:]}")
+            admitted.append(f"lost the shutdown race: {last[:100]}")
+        check(any(p.returncode == 0 for p in procs[1:]),
+              f"no client_fl exited 0: {admitted}")
+        replay = json.loads(subprocess.run(
+            cmd + ["repro_torch.launch.serve_fl", *SERVE_ARGS, "--device",
+                   device, "--replay-journal", str(journal), "--json"],
+            env=env, cwd=ROOT, capture_output=True, text=True, timeout=300,
+            check=True).stdout)
+    check(replay["replayed"] == live["folded"]
+          and replay["params_sha256"] == live["params_sha256"],
+          f"tcp run vs replay: {live['params_sha256']} vs "
+          f"{replay['params_sha256']}")
+    print(f"  tcp: serve_fl on {device} + {SOCKET_CLIENTS} client_fl "
+          f"processes (no card visible), {live['folded']} folds to version {live['version']} "
+          f"in {live['seconds']:.2f} s (clients admitted {admitted}); "
+          f"replay of the journal on {device}: params_sha256 "
+          f"{replay['params_sha256'][:16]} equal")
+
+    # the http twin: in-process controller against RemoteAggregator
+    def drive(service, pump, ds):
+        for seq in range(16):
+            version, _ = service.pull()
+            up = draw_upload(ds[seq % 4], seq % 4, fl, base_version=version,
+                             t=float(seq), seq=seq // 4)
+            check(service.offer(up, float(seq)).accepted, "http offer")
+            pump()
+        return service.pull()
+
+    def controller():
+        return ServingController(lenet_loss, init_lenet(
+            torch.Generator().manual_seed(0)), fl, ServeConfig(adapt_every=0),
+            device=device)
+
+    twin = controller()
+    v_twin, p_twin = drive(twin, lambda: twin.pump(1e9), sc.make_dataset(
+        32, samples_per_client=64, seed=0)[0])
+    ctrl = controller()
+    srv = AggregatorServer(ctrl, transport="http")
+    srv.start()
+    try:
+        client = RemoteAggregator("127.0.0.1", srv.port, transport="http")
+        v_sock, p_sock = drive(client, lambda: ctrl.pump(srv.clock()),
+                               sc.make_dataset(32, samples_per_client=64,
+                                               seed=0)[0])
+        client.close()
+    finally:
+        srv.shutdown()
+    twin_tensors = {}
+    tree_to_wire("params", p_twin, twin_tensors)
+    sock_tensors = {}
+    tree_to_wire("params", p_sock, sock_tensors)
+    check(v_twin == v_sock == 2 and all(
+        twin_tensors[k].tobytes() == sock_tensors[k].tobytes()
+        for k in twin_tensors) and wire.params_sha256(v_twin, p_twin)
+        == wire.params_sha256(v_sock, p_sock), "http twin differs")
+    print("  http twin: 16 uploads through RemoteAggregator over http == "
+          "the in-process controller, served params byte-identical")
+    return serve
+
+
+def serving_gate(torch, np, policy: str, device: str) -> None:
+    """tests/test_serving.py's acceptance gate on the card: 3 rounds of K = 4
+    uploads at tau 0..3 through the controller, against apply_server_round
+    in fused mode on bases whose eq. 3 distances are the ring's."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import (
+        ServeConfig,
+        ServingController,
+        Upload,
+        apply_server_round,
+        flatten_stacked,
+        flatten_tree,
+        make_flat_spec,
+        make_local_update_fn,
+        unflatten_like,
+    )
+
+    def quad_loss(params, batch):
+        x, y = batch
+        return torch.mean((x @ params["w"] - y) ** 2), {}
+
+    k = 4
+    fl = FLConfig(buffer_size=k, local_steps=1, local_lr=0.1,
+                  weighting=policy, normalize="mean", global_lr=1.0,
+                  max_staleness=k)
+    ctrl = ServingController(quad_loss, {"w": np.array(
+        [1.0, -1.0, 0.5, 2.0], np.float32)}, fl,
+        ServeConfig(adapt_every=0, k_max=8), device=device)
+    ctrl.update_norm_ring = torch.tensor([0.3, 0.2, 0.1, 0.05],
+                                         device=device)
+    local_update = make_local_update_fn(quad_loss, 1, 0.1)
+    taus, sizes = [0, 1, 2, 3], [10.0, 20.0, 30.0, 40.0]
+    rng = np.random.default_rng(0)
+
+    def batch():
+        x = rng.normal(size=(8, 4)).astype(np.float32)
+        return x, (x @ np.arange(1.0, 5.0) + 0.01 * rng.normal(
+            size=8)).astype(np.float32)
+
+    def dev(tree):
+        return tuple(torch.from_numpy(a).to(device) for a in tree)
+
+    t = 0.0
+    for rnd in range(3):
+        x_tree, ring = ctrl.params, ctrl.update_norm_ring.clone()
+        uploads, deltas, losses = [], [], []
+        for i in range(k):
+            stacked, probe = tuple(a[None] for a in batch()), batch()
+            deltas.append(local_update(x_tree, dev(stacked))[0]["w"])
+            losses.append(quad_loss(x_tree, dev(probe))[0])
+            uploads.append((stacked, probe))
+        for i, (stacked, probe) in enumerate(uploads):
+            t += 0.1
+            up = Upload(client_id=i, base_version=ctrl.version - taus[i],
+                        data_size=sizes[i], batch=stacked, probe=probe,
+                        sent_at=t)
+            check(ctrl.offer(up, t).accepted, "gate offer")
+            ctrl.pump(t)
+        check(ctrl.version == rnd + 1, "gate: the K-th fold applied")
+        dists = torch.stack([ring[:tt].sum() for tt in taus])
+        spec = make_flat_spec(x_tree)
+        x = flatten_tree(spec, x_tree)
+        bases = x[None] - torch.sqrt(dists)[:, None] * torch.eye(
+            spec.n_padded, device=device)[:k]
+        new_x, _ = apply_server_round(
+            x, bases, flatten_stacked(spec, {"w": torch.stack(deltas)}),
+            torch.stack(losses), torch.tensor(sizes, device=device),
+            torch.tensor(taus, dtype=torch.float32, device=device), fl,
+            mode="fused")
+        got = ctrl.params["w"].cpu().numpy()
+        want = unflatten_like(spec, new_x)["w"].cpu().numpy()
+        check(np.allclose(got, want, rtol=GATE_RTOL, atol=GATE_ATOL),
+              f"gate {policy} round {rnd}: {got} vs {want}")
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -878,7 +1428,7 @@ def main() -> int:
     )
 
     # 1. device line
-    line = device_line()
+    line = card = device_line()
     print(line)
     name = torch.cuda.get_device_name(0)
     rate = hbm_rate(name)
@@ -1174,6 +1724,22 @@ def main() -> int:
     print("  resumed run == uninterrupted run: round log, history, final "
           "params and ring bit-identical")
 
+    # 6b. Slice C: the cohort step, the dist step, aggregate_fused and the
+    # serving loop (in process, over tcp with a journal replay, http twin)
+    t = time.perf_counter()
+    slice_c = slice_c_phase(torch, np, (ops, rc_ops, fa_ops, ss_ops),
+                            dataset, init, "cuda")
+    rates = slice_c["rates"]
+    print(f"  Slice C numbers ({card}): cohort rounds/s fused "
+          f"{rates['fused']:.2f}, batched {rates['batched']:.2f}, reference "
+          f"{rates['reference']:.2f}; serve_fl inproc uploads folded per "
+          f"wall second {slice_c['uploads_per_s']:.2f} (CPU "
+          f"{slice_c['cpu_uploads_per_s']:.2f}), round latency on the sim "
+          f"clock p50 {slice_c['p50']:.4f} s, p99 {slice_c['p99']:.4f} s; "
+          f"fold {slice_c['fold_ms']:.3f} ms, apply {slice_c['apply_ms']:.3f}"
+          f" ms (wall, synchronised, median of 3 rounds)")
+    print(f"  phase: {time.perf_counter() - t:.1f} s")
+
     # 7. K5 and K6 against their plain versions
     t = time.perf_counter()
     print("K5 / K6 phases (median of 10 kernel calls, CUDA events):")
@@ -1225,7 +1791,8 @@ def main() -> int:
             "burst_ms": r["burst_ms"],
             "library_burst_ms": r["library_burst_ms"],
             "device_ms": r["device_ms"],
-            "library_device_ms": r["library_device_ms"]})
+            "library_device_ms": r["library_device_ms"],
+            "cohort_launches": slice_c["launches"][name_k]})
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,31 @@ from repro_torch.core.weighting import (  # noqa: F401
     staleness_degree,
     statistical_effect,
 )
-from repro_torch.core.aggregation import aggregate  # noqa: F401
+from repro_torch.core.aggregation import aggregate, aggregate_fused  # noqa: F401
 from repro_torch.core.buffer import BufferEntry, UpdateBuffer, VersionHistory  # noqa: F401
 from repro_torch.core.client import make_fresh_loss_fn, make_local_update_fn  # noqa: F401
-from repro_torch.core.round_body import make_ring_round, make_round_body  # noqa: F401
+from repro_torch.core.cohort import (  # noqa: F401
+    CohortState,
+    DistFLState,
+    init_cohort_state,
+    init_dist_state,
+    make_cohort_step,
+    make_dist_step,
+)
+from repro_torch.core.round_body import (  # noqa: F401
+    StreamingRoundBody,
+    make_ring_round,
+    make_round_body,
+    make_streaming_round_body,
+)
 from repro_torch.core.server import AsyncServer, SyncServer  # noqa: F401
+from repro_torch.core.serving import (  # noqa: F401
+    Admission,
+    ServeConfig,
+    ServingController,
+    Upload,
+    serve_stream,
+)
 from repro_torch.core.server_pass import (  # noqa: F401
     FlatSpec,
     apply_server_round,

@@ -22,7 +22,12 @@ from repro_torch.core.aggregation import aggregate
 from repro_torch.core.buffer import BufferEntry, UpdateBuffer, VersionHistory
 from repro_torch.core.server_pass import make_server_pass
 from repro_torch.utils.device import DeviceLike, resolve_device
-from repro_torch.utils.tree import tree_leaves, tree_map, tree_stack
+from repro_torch.utils.tree import (
+    tree_leaves,
+    tree_map,
+    tree_stack,
+    tree_to_device,
+)
 
 # info fields read back each round, and their round-log keys
 _LOG_FIELDS = (("weights", "weights"), ("staleness", "staleness_deg"),
@@ -53,9 +58,6 @@ class AsyncServer:
         self._pass = make_server_pass(fl, fresh_loss_fn, device=self.device)
         self._fresh_loss = fresh_loss_fn
         self.round_log: List[Dict] = []
-
-    def _on_device(self, tree: Any) -> Any:
-        return tree_map(lambda a: torch.as_tensor(a).to(self.device), tree)
 
     # ------------------------------------------------------------------
     def receive(self, client_id: int, delta: Any, base_version: int,
@@ -104,7 +106,7 @@ class AsyncServer:
                               .to(self.device), *batches)
             return probes, mask, None
         losses = torch.stack([self._fresh_loss(self.params,
-                                               self._on_device(b))
+                                               tree_to_device(b, self.device))
                               for b in batches]).to(torch.float32)
         return None, mask, torch.where(mask > 0, losses, 1.0)
 

@@ -7,11 +7,14 @@
 ``legacy``    — the per-event loop (``run_async_legacy``) and synchronous
                 FedAvg (``run_sync``).
 ``metrics``   — round-log telemetry (``summarize``; numpy).
+``arrivals``  — continuous-arrival upload streams for the serving loop
+                (``TrafficGenerator``, ``draw_upload``; host code).
 
-Only the numpy modules load here; import ``repro_torch.sim.engine`` or
-``repro_torch.sim.legacy`` for the engines.
+The engines are not imported here; import ``repro_torch.sim.engine`` or
+``repro_torch.sim.legacy`` for them.
 """
 from repro_torch.sim import metrics  # noqa: F401
+from repro_torch.sim.arrivals import TrafficGenerator, draw_upload  # noqa: F401
 from repro_torch.sim.base import SimResult, make_batches, resolve_behavior  # noqa: F401
 from repro_torch.sim.scenarios import (  # noqa: F401
     ClientBehavior,

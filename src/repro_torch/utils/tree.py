@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
 
+import numpy as np
 import torch
 
 Path = Tuple[str, ...]
@@ -63,3 +64,23 @@ def tree_stack(trees: List[Any]) -> Any:
     """Stack a list of same-structure trees along a new leading axis, leaf
     by leaf (``repro.utils.pytree.tree_stack``)."""
     return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)
+
+
+def tree_sq_dist(a: Any, b: Any) -> torch.Tensor:
+    """Squared L2 distance ||a - b||^2 across all leaves (f32 accumulation,
+    one partial per leaf in leaf order, as ``repro.utils.pytree``)."""
+    parts = [torch.sum(torch.square(x.to(torch.float32) - y.to(torch.float32)))
+             for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    return torch.sum(torch.stack(parts))
+
+
+def tree_to_device(tree: Any, device: torch.device) -> Any:
+    """Arrays or tensors -> tensors on ``device``, leaf by leaf. Read-only
+    numpy arrays (views of a decoded wire frame) are copied first."""
+
+    def leaf(a):
+        if isinstance(a, np.ndarray) and not a.flags.writeable:
+            a = a.copy()
+        return torch.as_tensor(a).to(device)
+
+    return tree_map(leaf, tree)

@@ -15,7 +15,12 @@ P carried as two bf16 terms (within 2^-16 relative) and f32 sums, so the
 two differ by at most one bf16 ulp of the output (rtol 8e-3). The 2-layer
 full-width Hymba prefill on the card vs on the CPU at f32: atol 1e-4 times
 the largest logit (the same f32 maths, cuBLAS vs CPU matmuls, over 2
-layers).
+layers). Slice C: the cohort step with straggler masks on the card
+against reference mode on the card and on the CPU (rtol 1e-3 / atol 1e-5,
+as the engine); ``aggregate_fused`` (one K3 launch) against ``aggregate``
+(rtol 1e-5); the serving controller on the card against the CPU (the same
+counters and fold journal exactly, params atol 1e-5); pulls from worker
+threads while the fold thread applies (digests exact).
 """
 import numpy as np
 import pytest
@@ -463,3 +468,252 @@ def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     return tree.cpu()
+
+
+# ---------------------------------------------------------------------------
+# Slice C: the cohort step, the serving controller, aggregate_fused
+# ---------------------------------------------------------------------------
+
+# stragglers; the slots that arrived last round (tau 0) absent; everyone
+COHORT_MASKS = ([1, 0, 1, 0], [0, 1, 0, 1], [1, 1, 1, 1])
+
+
+def _cohort_rounds(c=4, m=2, b=8):
+    rng = np.random.default_rng(0)
+    return [{"local": (rng.normal(size=(c, m, b, 28, 28, 1)).astype(
+                 np.float32), rng.integers(0, 10, (c, m, b)).astype(np.int32)),
+             "probe": (rng.normal(size=(c, b, 28, 28, 1)).astype(np.float32),
+                       rng.integers(0, 10, (c, b)).astype(np.int32)),
+             "arrival": np.asarray(mask, np.float32),
+             "data_sizes": np.asarray([40.0, 80.0, 20.0, 60.0], np.float32)}
+            for mask in COHORT_MASKS]
+
+
+def _cohort_run(mode, device, rounds):
+    from repro_torch.core import init_cohort_state, make_cohort_step
+
+    fl = FLConfig(buffer_size=4, local_steps=2, local_lr=0.05,
+                  server_pass_mode=mode)
+    step = make_cohort_step(lenet_loss, fl, device=device)
+    init = init_lenet(torch.Generator().manual_seed(0), device=device)
+    state, mets = init_cohort_state(init, 4), []
+    ops.reset_launches()
+    for batch in rounds:
+        state, m = step(state, batch)
+        mets.append({k: float(v) for k, v in m.items()})
+    launches = (ops.server_update.launches, ops.sq_dists.launches,
+                ops.weighted_sum.launches)
+    return state, mets, launches
+
+
+@pytest.mark.cuda
+def test_cohort_step_on_card_matches_reference_and_cpu(cuda):
+    """The cohort step with straggler masks (the fresh slots absent in
+    round 2): fused (K1 once a round) and batched (K2 + K3) on the card
+    against reference on the card and on the CPU (rtol 1e-3 on the
+    telemetry, atol 1e-5 on the params, as the engine above)."""
+    rounds = _cohort_rounds()
+    runs = {mode: _cohort_run(mode, "cuda", rounds)
+            for mode in ("fused", "batched", "reference")}
+    runs["cpu"] = _cohort_run("reference", "cpu", rounds)
+    assert runs["fused"][2] == (3, 0, 0)
+    assert runs["batched"][2] == (0, 3, 3)
+    assert runs["reference"][2] == (0, 0, 0)
+    want_state, want_mets, _ = runs["cpu"]
+    for name in ("fused", "batched", "reference"):
+        state, mets, _ = runs[name]
+        for a, b in zip(mets, want_mets):
+            for key in b:
+                np.testing.assert_allclose(a[key], b[key], rtol=1e-3,
+                                           atol=1e-6, err_msg=f"{name} {key}")
+        assert state.client_version.tolist() == \
+            want_state.client_version.tolist()
+        for field in ("global_params", "client_params", "client_base"):
+            got, want = getattr(state, field), getattr(want_state, field)
+            for layer, leaves in want.items():
+                for key, v in leaves.items():
+                    torch.testing.assert_close(got[layer][key].cpu(), v,
+                                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_aggregate_fused_on_card_is_one_k3_launch(cuda):
+    from repro_torch.core import aggregate, aggregate_fused
+
+    g = torch.Generator().manual_seed(3)
+    params = init_lenet(g, device="cuda")
+    deltas = {layer: {k: 0.01 * torch.randn((10,) + tuple(v.shape),
+                                            generator=g).cuda()
+                      for k, v in leaves.items()}
+              for layer, leaves in params.items()}
+    w = torch.rand(10, generator=g).cuda() + 0.5
+    ops.reset_launches()
+    new_f, upd_f = aggregate_fused(params, deltas, w, 0.9, 10)
+    assert ops.weighted_sum.launches == 1
+    new_a, upd_a = aggregate(params, deltas, w, 0.9, 10)
+    for layer in params:
+        for key in params[layer]:
+            torch.testing.assert_close(new_f[layer][key], new_a[layer][key],
+                                       rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(upd_f[layer][key], upd_a[layer][key],
+                                       rtol=1e-4, atol=1e-7)
+
+
+def _serve(device, rounds=4):
+    from repro_torch.core import ServeConfig, ServingController, serve_stream
+    from repro_torch.sim.arrivals import TrafficGenerator
+
+    sc = get_scenario("paper-fig1")
+    clients, _ = sc.make_dataset(8, samples_per_client=64, seed=0)
+    fl = FLConfig(num_clients=8, buffer_size=4, local_steps=1, batch_size=8,
+                  max_staleness=12)
+    ctrl = ServingController(lenet_loss,
+                             init_lenet(torch.Generator().manual_seed(0)), fl,
+                             ServeConfig(adapt_every=2), device=device)
+    folds = []
+    ctrl.fold_hook = lambda up, tau: folds.append((up.client_id, up.seq, tau))
+    out = serve_stream(ctrl, TrafficGenerator(clients, sc.behavior(
+        8, seed=0), fl), max_rounds=rounds)
+    return ctrl, out, folds
+
+
+@pytest.mark.cuda
+def test_serving_controller_on_card_matches_cpu(cuda):
+    """The same scenario stream served on the card and on the CPU: the same
+    counters, K trajectory and fold journal; params within atol 1e-5."""
+    ctrl, out, folds = _serve("cuda")
+    cpu_ctrl, cpu_out, cpu_folds = _serve("cpu")
+    assert folds == cpu_folds
+    for key in ("admitted", "folded", "rounds", "version", "k", "k_history",
+                "round_latency_p50", "round_latency_p99"):
+        assert out[key] == cpu_out[key], key
+    for layer, leaves in cpu_ctrl.params.items():
+        for key, v in leaves.items():
+            assert ctrl.params[layer][key].is_cuda
+            torch.testing.assert_close(ctrl.params[layer][key].cpu(), v,
+                                       rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_card_pulls_stay_those_of_their_version(cuda):
+    """``pull`` hammered from worker threads while the fold thread applies
+    on the card: every pulled pair, serialised outside the lock (a device
+    to host copy), hashes to the digest recorded at that version's apply."""
+    import sys
+    import threading
+
+    from repro_torch.core import ServeConfig, ServingController
+    from repro_torch.core.serving import tree_to_wire
+    from repro_torch.sim.arrivals import draw_upload
+    from repro_torch.transport import wire
+
+    clients, _ = get_scenario("paper-fig1").make_dataset(
+        2, samples_per_client=64, seed=0)
+    fl = FLConfig(buffer_size=1, local_steps=1, batch_size=8,
+                  max_staleness=1000)
+    ctrl = ServingController(lenet_loss,
+                             init_lenet(torch.Generator().manual_seed(0)), fl,
+                             ServeConfig(adapt_every=0, k_min=1,
+                                         queue_capacity=256), device="cuda")
+    digests = {0: wire.params_sha256(*ctrl.pull())}
+    pulled, stop = [], threading.Event()
+
+    def puller():
+        while not stop.is_set():
+            v, p = ctrl.pull()
+            tensors = {}
+            tree_to_wire("params", p, tensors)
+            pulled.append((v, tensors))
+
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    threads = [threading.Thread(target=puller) for _ in range(6)]
+    try:
+        for t in threads:
+            t.start()
+        for i in range(30):
+            up = draw_upload(clients[i % 2], i % 2, fl,
+                             base_version=ctrl.version, t=0.0, seq=i)
+            ctrl.offer(up, 0.0)
+            ctrl.pump(0.0)
+            digests[ctrl.version] = wire.params_sha256(*ctrl.pull())
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        sys.setswitchinterval(prev)
+    assert not any(t.is_alive() for t in threads)
+    assert ctrl.version == 30 and len(pulled) > 30
+    for v, tensors in pulled:
+        tree = {}
+        for name, arr in tensors.items():
+            _, layer, key = name.split(".")
+            tree.setdefault(layer, {})[key] = arr
+        assert wire.params_sha256(v, tree) == digests[v]
+
+
+@pytest.mark.cuda
+def test_fold_thread_on_card_replays_to_same_digest(cuda, tmp_path):
+    """``AggregatorServer.serve`` on a thread that is not the main one, so
+    the local training and every device call of the folds run there; two
+    tcp clients; the fold journal replayed in process on the card lands on
+    the live digest (deterministic cuDNN, as serve_fl sets it)."""
+    import threading
+
+    from repro_torch.core import ServeConfig, ServingController
+    from repro_torch.launch.serve_fl import _attach_journal, replay_journal
+    from repro_torch.transport import wire
+    from repro_torch.transport.client import RemoteAggregator, run_client
+    from repro_torch.transport.server import AggregatorServer
+
+    sc = get_scenario("paper-fig1")
+    fl = FLConfig(num_clients=4, buffer_size=4, local_steps=1, batch_size=8,
+                  max_staleness=100)
+
+    def controller():
+        return ServingController(
+            lenet_loss, init_lenet(torch.Generator().manual_seed(0)), fl,
+            ServeConfig(adapt_every=0, queue_capacity=64), device="cuda")
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ctrl, rounds = controller(), 3
+        journal = tmp_path / "folds.jsonl"
+        with open(journal, "w") as f:
+            _attach_journal(ctrl, f)
+            srv = AggregatorServer(ctrl, transport="tcp")
+            srv.start()
+            folder = threading.Thread(target=srv.serve, kwargs={
+                "stop": lambda: ctrl.version >= rounds, "poll": 0.01},
+                daemon=True)
+            folder.start()
+            clients, _ = sc.make_dataset(4, samples_per_client=64, seed=0)
+
+            def one_client(cid):
+                svc = RemoteAggregator("127.0.0.1", srv.port, seed=cid)
+                try:
+                    run_client(svc, clients[cid], cid, fl, uploads=10,
+                               stop_at_version=rounds, seed=cid)
+                except ConnectionError:
+                    pass  # pulled after the server shut down: the race
+                finally:
+                    svc.close()
+
+            threads = [threading.Thread(target=one_client, args=(c,))
+                       for c in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            folder.join(timeout=120)
+            srv.shutdown()
+        assert not folder.is_alive() and ctrl.version >= rounds
+        assert not any(t.is_alive() for t in threads)
+        replay = controller()
+        replay_journal(str(journal), replay, sc.make_dataset(
+            4, samples_per_client=64, seed=0)[0], fl)
+        assert wire.params_sha256(*replay.pull()) == \
+            wire.params_sha256(*ctrl.pull())
+    finally:
+        torch.backends.cudnn.deterministic = prev

@@ -16,9 +16,16 @@ import torch
 
 from repro_torch.configs import get_arch, smoke_variant
 from repro_torch.configs.base import FLConfig
-from repro_torch.core import AsyncServer, run_async, run_sync
+from repro_torch.core import (
+    AsyncServer,
+    ServingController,
+    make_cohort_step,
+    make_dist_step,
+    run_async,
+    run_sync,
+)
 from repro_torch.core.version_store import build_ring
-from repro_torch.launch import serve
+from repro_torch.launch import serve, serve_fl
 from repro_torch.models import (
     Model,
     init_lenet,
@@ -61,7 +68,12 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.models, "
             "repro_torch.models.model, repro_torch.launch.serve, "
             "repro_torch.kernels.flash_attn.ops, "
-            "repro_torch.kernels.ssm_scan.ops; "
+            "repro_torch.kernels.ssm_scan.ops, repro_torch.core.cohort, "
+            "repro_torch.core.serving, repro_torch.sim.arrivals, "
+            "repro_torch.transport, repro_torch.transport.wire, "
+            "repro_torch.transport.server, repro_torch.transport.client, "
+            "repro_torch.launch.cli, repro_torch.launch.serve_fl, "
+            "repro_torch.launch.client_fl, repro_torch.launch.replay_probe; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code],
@@ -99,6 +111,21 @@ def test_entry_points_default_to_cuda_and_raise(no_cuda):
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_slice_c_entry_points_default_to_cuda_and_raise(no_cuda):
+    params, _, fl = _setup()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingController(lenet_loss, params, fl)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_cohort_step(lenet_loss, fl)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_dist_step(lenet_loss, fl)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_fl.main(["--clients", "4", "--samples-per-client", "16",
+                       "--rounds", "1"])
+    assert ServingController(lenet_loss, params, fl,
+                             device="cpu").device == torch.device("cpu")
 
 
 def test_unported_engines_name_their_slice():
