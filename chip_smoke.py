@@ -93,6 +93,28 @@ Phases, in order; any failure raises and exits non-zero:
    wall second, the round-latency p50/p99 on the sim clock, fold and apply
    ms and the cohort's rounds/s per mode beside the card's name and power
    limit.
+6c. Slice D, the population engine. Draws: ``fold_in``, ``random_bits32``,
+   ``randint`` (spans 7, 1500, 70000, 2^31-1) and ``uniform`` over 2^20
+   (cid, k) pairs bit-identical card vs CPU, ``normal`` within 4 ulp (the
+   largest gap printed). Windows: ``collect_windows`` on the card equal
+   ``host_walk_windows(CounterBehavior(device="cuda"))`` exactly (clients,
+   tau, slots, event count, times bit for bit) at N = 10,000, K = 64, 50
+   windows (``paper-fig1`` and ``dropout-bernoulli``), in the re-entry
+   case (N = 4, K = 3) and the forced-exact case (K > N); the events that
+   differ from the CPU's windows are counted (not held). Scale:
+   ``collect_windows`` at N = 1e4, 1e5, 1e6 (events/s cold, host reads per
+   window, peak device memory above what was live before the sweep).
+   Training: ``run_population`` at the paper config (30 clients) in fused
+   (K1 = 10 launches), batched (K2 = K3 = 10) and reference (none) against
+   ``run_vectorized`` over ``make_counter_clients`` + ``CounterBehavior``
+   round for round and against the CPU; with the int8 ring fused (K4 = K3
+   = 10) against int8 reference (none) round for round; at N = 1e6 over
+   ``DevicePool.shared`` (the 45,000 paper samples, 1,500 a client), 10
+   fused rounds: rounds/s after a warm-up run, host reads per round, peak
+   memory above the pool and what else was live at the run's start, and a
+   resume from round 5 bit-identical to the uninterrupted run (round log,
+   params, ``PopState``) at the entry point's own cuDNN/TF32 flags, the
+   caller's flags restored after each run.
 7. K5 (flash attention) against its plain version at Hymba-1.5B's shapes
    (B=2, S=4096, 25 query and 5 kv heads, D=64) in bf16 and f32, window
    1024 and 0 (causal), a ragged S (3001) and an S shorter than the window
@@ -116,7 +138,8 @@ Phases, in order; any failure raises and exits non-zero:
    gen 16).
 
 The last two lines of standard output are the kernels' JSON record (with
-each of K1-K3's launches in the cohort run beside the main path's) and
+each kernel's launches in the cohort runs and in the population runs beside
+the main path's) and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1384,6 +1407,295 @@ def serving_gate(torch, np, policy: str, device: str) -> None:
               f"gate {policy} round {rnd}: {got} vs {want}")
 
 
+# Slice D. Draws: ~1e6 (cid, k) pairs, card against CPU. Events: N = 10,000
+# clients, K = 64, 50 windows (bench_population_scale.py's sweep config:
+# max_staleness 8) in paper-fig1 and dropout-bernoulli; the re-entry case (N =
+# 4, K = 3) and the forced-exact case (K > N). Scale: collect_windows at N =
+# 1e4, 1e5, 1e6. Training: the paper's 30 clients (DevicePool.from_clients),
+# and N = 1e6 clients over DevicePool.shared of the paper's 45,000 samples,
+# 1,500 a client (DESIGN.md section 10's scale), 10 rounds each.
+POP_DRAWS = 1 << 20
+NORMAL_ULPS = 4
+POP_WINDOW_N, POP_K, POP_WINDOWS, POP_STALENESS = 10_000, 64, 50, 8
+POP_SCALE_N = (10_000, 100_000, 1_000_000)
+POP_BIG_N, POP_PER_CLIENT, POP_RESUME_AT = 1_000_000, 1_500, 5
+
+
+def slice_d_phase(torch, np, kernel_ops, dataset, init, device: str):
+    """The population engine: draws, windows, scale and training on the
+    card; returns the population runs' launch counts of every kernel and the
+    numbers the summary prints."""
+    from repro_torch.configs import PAPER_FL
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.launch import population_scale
+    from repro_torch.models import lenet_loss
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.sim import get_scenario
+    from repro_torch.sim.engine import run_vectorized
+    from repro_torch.sim.population import (
+        CounterBehavior,
+        DevicePool,
+        collect_windows,
+        host_walk_windows,
+        init_population,
+        make_counter_clients,
+        run_population,
+    )
+    from repro_torch.utils import threefry
+
+    ops, rc_ops, fa_ops, ss_ops = kernel_ops
+    out = {}
+
+    def launches():
+        return {"fused_server": ops.server_update.launches,
+                "sq_dists": ops.sq_dists.launches,
+                "weighted_sum": ops.weighted_sum.launches,
+                "int8_sq_dists": rc_ops.int8_sq_dists.launches,
+                "flash_attention": fa_ops.flash_attention.launches,
+                "selective_scan": ss_ops.selective_scan.launches}
+
+    def reset_launches():
+        for module in kernel_ops:
+            module.reset_launches()
+
+    none = dict.fromkeys(SOURCES, 0)
+    population_launches = dict(none)
+
+    # draws: the card's against the CPU's over ~1e6 (cid, k) pairs
+    t = time.perf_counter()
+    g = torch.Generator().manual_seed(19)
+    cid = torch.randint(0, 2 ** 31 - 1, (POP_DRAWS,), generator=g,
+                        dtype=torch.int32)
+    kk = torch.randint(0, 1 << 16, (POP_DRAWS,), generator=g,
+                       dtype=torch.int32)
+
+    def keys(dev):
+        return threefry.fold_in(threefry.fold_in(threefry.fold_in(
+            threefry.prng_key(0, dev), 101), cid.to(dev)), kk.to(dev))
+
+    card, host = keys(device), keys("cpu")
+    check(torch.equal(card.k0.cpu(), host.k0)
+          and torch.equal(card.k1.cpu(), host.k1), "fold_in card vs CPU")
+    check(torch.equal(threefry.random_bits32(card, (2,)).cpu(),
+                      threefry.random_bits32(host, (2,))),
+          "random_bits32 card vs CPU")
+    for hi in (7, 1_500, 70_000, 2 ** 31 - 1):
+        check(torch.equal(threefry.randint(card, (), 0, hi).cpu(),
+                          threefry.randint(host, (), 0, hi)),
+              f"randint span {hi}: card vs CPU")
+    check(torch.equal(threefry.uniform(card, (), 0.0, 24.0).cpu(),
+                      threefry.uniform(host, (), 0.0, 24.0)),
+          "uniform card vs CPU")
+    a = threefry.normal(card).cpu().numpy().view(np.int32).astype(np.int64)
+    b = threefry.normal(host).numpy().view(np.int32).astype(np.int64)
+    ulps = int(np.abs(a - b).max())
+    check(ulps <= NORMAL_ULPS, f"normal card vs CPU: {ulps} ulp")
+    print(f"draws: {POP_DRAWS:,} (cid, k) pairs; fold_in, random_bits32, "
+          f"randint (spans 7, 1500, 70000, 2^31-1) and uniform bit-identical "
+          f"card vs CPU; normal largest gap {ulps} ulp (limit {NORMAL_ULPS}); "
+          f"{time.perf_counter() - t:.1f} s")
+
+    # windows: the card's collect_windows against the host twin on the
+    # card's own draws, exactly; and against the CPU's collect_windows
+    def fl_for(n, k):
+        return FLConfig(num_clients=n, buffer_size=k, local_steps=1,
+                        batch_size=8, max_staleness=POP_STALENESS)
+
+    def windows_equal(a, b):
+        return (all(np.array_equal(a[f], b[f])
+                    for f in ("clients", "tau", "slots", "t"))
+                and a["num_events"] == b["num_events"])
+
+    cases = [("paper-fig1", POP_WINDOW_N, POP_K, POP_WINDOWS, 0),
+             ("dropout-bernoulli", POP_WINDOW_N, POP_K, POP_WINDOWS, 0),
+             ("paper-fig1", 4, 3, 12, 5), ("dropout-bernoulli", 4, 3, 12, 5),
+             ("paper-fig1", 3, 5, 6, 1)]
+    for preset, n, k, windows, seed in cases:
+        t = time.perf_counter()
+        sc = get_scenario(preset)
+        reg = MetricsRegistry()
+        dev_w = collect_windows(sc, n, fl_for(n, k), windows, seed=seed,
+                                device=device, registry=reg)
+        host_w = host_walk_windows(CounterBehavior(sc, n, seed=seed,
+                                                   device=device),
+                                   fl_for(n, k), windows)
+        check(windows_equal(dev_w, host_w),
+              f"{preset} N={n} K={k}: card windows differ from the host twin")
+        cpu_w = collect_windows(sc, n, fl_for(n, k), windows, seed=seed,
+                                device="cpu")
+        differ = int(np.sum((dev_w["clients"] != cpu_w["clients"])
+                            | (dev_w["t"] != cpu_w["t"])))
+        reads = reg.snapshot()["engine_host_syncs_total"]
+        print(f"  windows {preset} N={n:,} K={k} x {windows}: card == host "
+              f"twin (clients, tau, slots, t bit for bit, "
+              f"{dev_w['num_events']} events); events differing card vs "
+              f"CPU {differ}; host reads {reads:g} "
+              f"({time.perf_counter() - t:.1f} s)")
+
+    # scale: the events-only sweep of launch/population_scale.py
+    out["scale"] = []
+    for n in POP_SCALE_N:
+        rec = population_scale.device_record(n, POP_WINDOWS,
+                                             torch.device(device))
+        rec["peak_mib"] = rec["peak_device_bytes"] / 2 ** 20
+        out["scale"].append(rec)
+        print(f"  collect_windows paper-fig1 N={n:>9,}: "
+              f"{rec['events_per_s']:,.1f} events/s ({rec['events']} "
+              f"events, median {rec['seconds']:.3f} s of 3 cold runs after "
+              f"a warm-up run), "
+              f"{rec['host_reads_per_window']:.2f} host reads/window, peak "
+              f"device memory {rec['peak_mib']:.1f} MiB")
+
+    # where a window's time goes at N = 1e6: device time and device
+    # operations of 10 windows from a fixed state, against their wall time
+    sc = get_scenario("paper-fig1")
+    n = POP_SCALE_N[-1]
+    fl_big = fl_for(n, POP_K)
+    statics0, state0 = init_population(sc, n, fl_big, device=device)
+
+    def ten_windows():
+        return collect_windows(sc, n, fl_big, 10, device=device,
+                               statics=statics0, state=state0,
+                               registry=MetricsRegistry())
+
+    ten_windows()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ten_windows()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3 / 10
+    rows = device_events(torch, profiled(torch, ten_windows))
+    dev_ms = sum(r[2] for r in rows) / 1e3 / 10
+    n_ops = sum(r[1] for r in rows) / 10
+    top = ", ".join(f"{k[:40]} {us / 1e3 / 10:.3f} ms" for k, _, us in rows[:3])
+    out["window_profile"] = {"wall_ms": wall_ms, "device_ms": dev_ms,
+                             "ops": n_ops}
+    print(f"  a window at N = {n:,}: {wall_ms:.3f} ms wall, {dev_ms:.3f} ms "
+          f"of device time ({100 * dev_ms / wall_ms:.1f}% busy) in "
+          f"{n_ops:.0f} device operations; largest: {top}")
+
+    # training at the paper's 30 clients: run_population against
+    # run_vectorized over the counter twins, and card against CPU
+    rounds = 10
+
+    def pop_run(mode, dev, codec="f32", data=None, total=rounds, **kw):
+        clients, _ = dataset()
+        fl = dataclasses.replace(PAPER_FL, server_pass_mode=mode,
+                                 ring_codec=codec)
+        reg = MetricsRegistry()
+        reset_launches()
+        t = time.perf_counter()
+        res = run_population(lenet_loss, init,
+                             clients if data is None else data, fl, total,
+                             scenario=sc, seed=0, device=dev, registry=reg,
+                             **kw)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = launches()
+        if dev == "cuda":
+            for name_k, c in counts.items():
+                population_launches[name_k] += c
+        done = total - (kw["init_state"].version if "init_state" in kw
+                        else 0)
+        syncs = reg.snapshot()["engine_host_syncs_total"]
+        return res, counts, done / dt, syncs / done
+
+    print(f"population training: paper-fig1, 30 clients x 1500, K=10, M=4, "
+          f"B=32, {rounds} rounds")
+    pop_run("fused", device)  # warm-up
+    runs, out["rates_30"] = {}, {}
+    for mode, codec, want in (
+            ("fused", "f32", {**none, "fused_server": rounds}),
+            ("batched", "f32", {**none, "sq_dists": rounds,
+                                "weighted_sum": rounds}),
+            ("reference", "f32", none),
+            ("fused", "int8", {**none, "int8_sq_dists": rounds,
+                               "weighted_sum": rounds}),
+            ("reference", "int8", none)):
+        res, counts, rate, reads = pop_run(mode, device, codec)
+        check(counts == want, f"population {mode}/{codec} launches {counts}")
+        check(res.server_rounds == rounds, f"population {mode}/{codec}")
+        runs[mode, codec] = res
+        out["rates_30"][f"{mode}/{codec}"] = rate
+        print(f"  run_population {mode:9s} {codec:4s} on {device}: "
+              f"{rate:.2f} rounds/s, {reads:.2f} host reads/round, "
+              f"launches {counts}")
+    clients, _ = dataset()
+    reset_launches()
+    twin = run_vectorized(lenet_loss, init,
+                          make_counter_clients(clients, seed=0),
+                          dataclasses.replace(PAPER_FL,
+                                              server_pass_mode="fused"),
+                          rounds, seed=0, device=device,
+                          behavior=CounterBehavior(sc, PAPER_FL.num_clients,
+                                                   seed=0, device=device))
+    for mode in ("fused", "batched", "reference"):
+        compare_runs(np, runs[mode, "f32"], twin,
+                     f"population {mode} vs run_vectorized over the twins")
+        check(runs[mode, "f32"].num_events == twin.num_events
+              and runs[mode, "f32"].sim_time == twin.sim_time,
+              f"population {mode}: events or sim time differ from the twin")
+    compare_runs(np, runs["fused", "int8"], runs["reference", "int8"],
+                 "population int8 ring fused (K4 + K3) vs reference")
+    cpu, _, _, _ = pop_run("fused", "cpu")
+    compare_runs(np, runs["fused", "f32"], cpu,
+                 "population fused on cuda vs on cpu")
+
+    # training at N = 1e6: DevicePool.shared over the paper's 45,000 samples
+    clients, _ = dataset()
+    x = np.concatenate([c.x for c in clients])
+    y = np.concatenate([c.y for c in clients])
+    pool = DevicePool.shared(x, y, POP_BIG_N, POP_PER_CLIENT).to(device)
+    print(f"population training at N = {POP_BIG_N:,}: DevicePool.shared over "
+          f"{len(x):,} samples, {POP_PER_CLIENT} a client, fused, {rounds} "
+          f"rounds")
+    pop_run("fused", device, data=pool)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    _, counts, rate, reads = pop_run("fused", device, data=pool)
+    peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 20
+    pool_mib = sum(t.numel() * t.element_size() for t in pool) / 2 ** 20
+    check(counts == {**none, "fused_server": rounds},
+          f"N = 1e6 launches {counts}")
+    # the resume at run_population's own flags, not the smoke's: it sets
+    # its own cuDNN/TF32 flags and puts these back
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    full, _, _, _ = pop_run("fused", device, data=pool, capture_state=True)
+    half, _, _, _ = pop_run("fused", device, data=pool, total=POP_RESUME_AT,
+                            capture_state=True)
+    resumed, _, _, _ = pop_run("fused", device, data=pool,
+                               init_state=half.final_state, capture_state=True)
+    check((cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32) == flags,
+          "run_population did not restore the backend flags")
+    check(resumed.round_log == full.round_log, "N = 1e6: resumed round log")
+    check(all(torch.equal(resumed.final_params[l][k], v)
+              for l, p in full.final_params.items() for k, v in p.items()),
+          "N = 1e6: resumed final params")
+    check(all(np.array_equal(getattr(resumed.final_state, f),
+                             getattr(full.final_state, f))
+              for f in ("t_next", "k_next", "batch_k", "base_version"))
+          and resumed.num_events == full.num_events
+          and resumed.sim_time == full.sim_time,
+          "N = 1e6: resumed PopState differs")
+    check(all(np.isfinite(r["weights"]).all() for r in full.round_log),
+          "N = 1e6: weights not finite")
+    out.update(rate_1e6=rate, reads_1e6=reads, peak_1e6=peak,
+               events_1e6=full.num_events)
+    print(f"  N = {POP_BIG_N:,}: {rate:.2f} rounds/s (after a warm-up run), "
+          f"{reads:.2f} host reads/round, peak device memory {peak:.1f} MiB "
+          f"above the {pool_mib:.1f} MiB pool and the rest live at its "
+          f"start, {full.num_events} events; resume (run_population's own "
+          f"flags) at round {POP_RESUME_AT} to {rounds}: round log, params "
+          f"and PopState bit-identical")
+    out["launches"] = population_launches
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -1740,6 +2052,22 @@ def main() -> int:
           f" ms (wall, synchronised, median of 3 rounds)")
     print(f"  phase: {time.perf_counter() - t:.1f} s")
 
+    # 6c. Slice D: the population engine (draws, windows, scale, training
+    # at N = 30 and N = 1e6 with a bit-identical resume)
+    t = time.perf_counter()
+    slice_d = slice_d_phase(torch, np, (ops, rc_ops, fa_ops, ss_ops),
+                            dataset, init, "cuda")
+    scale = ", ".join(f"N={r['n']:,} {r['events_per_s']:,.0f} events/s "
+                      f"{r['host_reads_per_window']:.2f} reads/window "
+                      f"{r['peak_mib']:.1f} MiB" for r in slice_d["scale"])
+    print(f"  Slice D numbers ({card}): collect_windows {scale}; "
+          f"run_population rounds/s at N = 30 "
+          f"{', '.join(f'{k} {v:.2f}' for k, v in slice_d['rates_30'].items())}"
+          f"; at N = {POP_BIG_N:,} {slice_d['rate_1e6']:.2f} rounds/s, "
+          f"{slice_d['reads_1e6']:.2f} host reads/round, peak "
+          f"{slice_d['peak_1e6']:.1f} MiB above the pool")
+    print(f"  phase: {time.perf_counter() - t:.1f} s")
+
     # 7. K5 and K6 against their plain versions
     t = time.perf_counter()
     print("K5 / K6 phases (median of 10 kernel calls, CUDA events):")
@@ -1792,7 +2120,8 @@ def main() -> int:
             "library_burst_ms": r["library_burst_ms"],
             "device_ms": r["device_ms"],
             "library_device_ms": r["library_device_ms"],
-            "cohort_launches": slice_c["launches"][name_k]})
+            "cohort_launches": slice_c["launches"][name_k],
+            "population_launches": slice_d["launches"][name_k]})
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,11 +14,6 @@ from repro_torch.sim.base import SimResult
 from repro_torch.sim.scenarios import LatencyModel
 from repro_torch.utils.device import DeviceLike
 
-_NOT_PORTED = {
-    "population": "the population engine comes with Slice D (ROADMAP.md)",
-}
-
-
 def run_async(loss_fn: Callable, init_params: Any, clients: Sequence,
               fl: FLConfig, total_rounds: int,
               eval_fn: Optional[Callable[[Any], Dict]] = None,
@@ -33,21 +28,23 @@ def run_async(loss_fn: Callable, init_params: Any, clients: Sequence,
     Runs on CUDA unless ``device="cpu"``; raises ``RuntimeError`` when CUDA
     is asked for and absent. ``engine="vectorized"`` (default) runs each
     K-upload window as one K-client batch; ``engine="legacy"`` replays the
-    per-event loop. Both accept ``scenario=``, ``behavior=``, ``trace=``
-    and ``record_trace=``; the vectorized engine also takes
-    ``rounds_per_launch=``, ``registry=``, ``tracer=`` and the checkpoint
-    arguments.
+    per-event loop; ``engine="population"`` keeps the client state machine
+    on the device (``sim/population.py``: counter-based draws, top-k
+    windows; ``clients`` may be a ``DevicePool``). The first two accept
+    ``scenario=``, ``behavior=``, ``trace=`` and ``record_trace=``; the
+    population engine takes ``scenario=`` only. The vectorized and
+    population engines also take ``rounds_per_launch=``, ``registry=``,
+    ``tracer=`` and the checkpoint arguments.
     """
-    if engine in _NOT_PORTED:
-        raise NotImplementedError(f"engine={engine!r} is not ported: "
-                                  f"{_NOT_PORTED[engine]}")
     if engine == "vectorized":
         from repro_torch.sim.engine import run_vectorized as runner
     elif engine == "legacy":
         from repro_torch.sim.legacy import run_async_legacy as runner
+    elif engine == "population":
+        from repro_torch.sim.population import run_population as runner
     else:
         raise ValueError(f"unknown engine {engine!r}; "
-                         "valid: 'vectorized', 'legacy'")
+                         "valid: 'vectorized', 'legacy', 'population'")
     return runner(loss_fn, init_params, clients, fl, total_rounds,
                   eval_fn=eval_fn, eval_every=eval_every, latency=latency,
                   seed=seed, device=device, **kw)

@@ -20,7 +20,14 @@ against reference mode on the card and on the CPU (rtol 1e-3 / atol 1e-5,
 as the engine); ``aggregate_fused`` (one K3 launch) against ``aggregate``
 (rtol 1e-5); the serving controller on the card against the CPU (the same
 counters and fold journal exactly, params atol 1e-5); pulls from worker
-threads while the fold thread applies (digests exact).
+threads while the fold thread applies (digests exact). Slice D: threefry
+draws (keys, bits, ``randint``, ``uniform``, ``normal``, XLA's ``exp`` and
+``log``) on the card bit-identical to the CPU's (IEEE operations only); the
+population windows on the card equal the host twin's and the CPU's exactly;
+``run_population`` in fused/batched mode against reference mode and the CPU
+(events exact, weights rtol 1e-3 / atol 1e-5, as the engine); resume
+bit-identical at the entry point's own cuDNN/TF32 flags, the caller's flags
+restored.
 """
 import numpy as np
 import pytest
@@ -717,3 +724,118 @@ def test_fold_thread_on_card_replays_to_same_digest(cuda, tmp_path):
             wire.params_sha256(*ctrl.pull())
     finally:
         torch.backends.cudnn.deterministic = prev
+
+
+# ---------------------------------------------------------------------------
+# Slice D: the population engine on the card
+# ---------------------------------------------------------------------------
+
+
+def _pop_keys(n, device):
+    from repro_torch.utils import threefry
+    g = torch.Generator().manual_seed(n)
+    cid = torch.randint(0, 2 ** 31 - 1, (n,), generator=g, dtype=torch.int32)
+    k = torch.randint(0, 5000, (n,), generator=g, dtype=torch.int32)
+    key = threefry.fold_in(threefry.fold_in(threefry.fold_in(
+        threefry.prng_key(7, device), 101), cid.to(device)), k.to(device))
+    return key
+
+
+@pytest.mark.cuda
+def test_threefry_draws_on_card_equal_cpu(cuda):
+    """Integer draws and uniform bit for bit; normal, exp and log as well,
+    since their float arithmetic is IEEE operations only."""
+    from repro_torch.utils import threefry
+    card, host = _pop_keys(200_000, cuda), _pop_keys(200_000, "cpu")
+    assert torch.equal(card.k0.cpu(), host.k0)
+    assert torch.equal(card.k1.cpu(), host.k1)
+    assert torch.equal(threefry.random_bits32(card, (3,)).cpu(),
+                       threefry.random_bits32(host, (3,)))
+    for hi in (7, 1500, 70_000, 2 ** 31 - 1):
+        assert torch.equal(threefry.randint(card, (4,), 0, hi).cpu(),
+                           threefry.randint(host, (4,), 0, hi))
+    assert torch.equal(threefry.uniform(card, (), -3.5, 2.25).cpu(),
+                       threefry.uniform(host, (), -3.5, 2.25))
+    assert torch.equal(threefry.normal(card).cpu(), threefry.normal(host))
+    x = torch.linspace(-80.0, 80.0, 100_003)
+    assert torch.equal(threefry.exp(x.to(cuda)).cpu(), threefry.exp(x))
+    y = torch.logspace(-30, 30, 100_003)
+    assert torch.equal(threefry.log(y.to(cuda)).cpu(), threefry.log(y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["paper-fig1", "dropout-bernoulli"])
+def test_population_windows_on_card_match_host_twin(cuda, preset):
+    from repro_torch.sim.population import (
+        CounterBehavior,
+        collect_windows,
+        host_walk_windows,
+    )
+    n, k, t = 2_000, 64, 20
+    fl = FLConfig(num_clients=n, buffer_size=k, max_staleness=8)
+    sc = get_scenario(preset)
+    card = collect_windows(sc, n, fl, t, seed=0, device=cuda)
+    host = host_walk_windows(CounterBehavior(sc, n, seed=0, device=cuda), fl,
+                             t)
+    for f in ("clients", "tau", "slots", "t"):
+        np.testing.assert_array_equal(card[f], host[f])
+    assert card["num_events"] == host["num_events"]
+    cpu = collect_windows(sc, n, fl, t, seed=0, device="cpu")
+    for f in ("clients", "tau", "slots", "t"):
+        np.testing.assert_array_equal(card[f], cpu[f])
+
+
+def _pop_run(mode, device, rounds=6, **kw):
+    from repro_torch.sim.population import run_population
+    clients, _ = get_scenario("dropout-bernoulli").make_dataset(
+        8, samples_per_client=64, seed=0)
+    fl = FLConfig(num_clients=8, buffer_size=4, local_steps=2, batch_size=8,
+                  max_staleness=4, server_pass_mode=mode)
+    params = init_lenet(torch.Generator().manual_seed(0))
+    return run_population(lenet_loss, params, clients, fl, rounds,
+                          scenario=get_scenario("dropout-bernoulli"), seed=2,
+                          device=device, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fused", "batched"])
+def test_population_run_on_card_matches_reference(cuda, mode):
+    ops.reset_launches()
+    res = _pop_run(mode, cuda)
+    if mode == "fused":
+        assert ops.server_update.launches == 6
+    else:
+        assert ops.sq_dists.launches == ops.weighted_sum.launches == 6
+    ref_run = _pop_run("reference", cuda)
+    cpu = _pop_run("reference", "cpu")
+    for other in (ref_run, cpu):
+        assert res.num_events == other.num_events
+        for a, b in zip(res.round_log, other.round_log):
+            assert (a["clients"], a["tau"]) == (b["clients"], b["tau"])
+            np.testing.assert_allclose(a["weights"], b["weights"], rtol=1e-3,
+                                       atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_population_resume_on_card_bit_identical(cuda):
+    # run_population sets its own cuDNN and TF32 flags and puts the
+    # caller's back: the resume holds at the entry point's defaults
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32
+    cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = False, True, True
+    try:
+        full = _pop_run("fused", cuda, rounds=8, capture_state=True)
+        half = _pop_run("fused", cuda, rounds=4, capture_state=True)
+        resumed = _pop_run("fused", cuda, rounds=8,
+                           init_state=half.final_state, capture_state=True)
+        assert (cudnn.deterministic, cudnn.benchmark,
+                cudnn.allow_tf32) == (False, True, True)
+    finally:
+        cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = prev
+    assert resumed.round_log == full.round_log
+    for layer, p in full.final_params.items():
+        for key, v in p.items():
+            assert torch.equal(resumed.final_params[layer][key], v)
+    for f in ("t_next", "k_next", "batch_k", "base_version"):
+        np.testing.assert_array_equal(getattr(resumed.final_state, f),
+                                      getattr(full.final_state, f))

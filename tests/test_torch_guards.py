@@ -25,13 +25,19 @@ from repro_torch.core import (
     run_sync,
 )
 from repro_torch.core.version_store import build_ring
-from repro_torch.launch import serve, serve_fl
+from repro_torch.launch import population_scale, serve, serve_fl
 from repro_torch.models import (
     Model,
     init_lenet,
     lenet_loss,
     lm_params_from_jax,
     params_from_jax,
+)
+from repro_torch.sim.population import (
+    CounterBehavior,
+    collect_windows,
+    init_population,
+    run_population,
 )
 from repro_torch.sim.scenarios import get_scenario
 from repro_torch.utils.device import resolve_device
@@ -73,7 +79,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.transport, repro_torch.transport.wire, "
             "repro_torch.transport.server, repro_torch.transport.client, "
             "repro_torch.launch.cli, repro_torch.launch.serve_fl, "
-            "repro_torch.launch.client_fl, repro_torch.launch.replay_probe; "
+            "repro_torch.launch.client_fl, repro_torch.launch.replay_probe, "
+            "repro_torch.utils.threefry, repro_torch.sim.population, "
+            "repro_torch.launch.population_scale; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code],
@@ -130,14 +138,37 @@ def test_slice_c_entry_points_default_to_cuda_and_raise(no_cuda):
 
 def test_unported_engines_name_their_slice():
     params, clients, fl = _setup()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_async(lenet_loss, params, clients, fl, 1, engine="population",
-                  device="cpu")
+    with pytest.raises(NotImplementedError, match="Slice E"):
+        run_population(lenet_loss, params, clients, fl, 1, mesh=object(),
+                       device="cpu")
+    with pytest.raises(NotImplementedError, match="Slice E"):
+        collect_windows(get_scenario("paper-fig1"), 4, fl, 1, mesh=object(),
+                        device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         run_async(lenet_loss, params, clients, fl, 1, engine="nope",
                   device="cpu")
     with pytest.raises(NotImplementedError, match="Slice E"):
         build_ring(params, fl, mesh=object())
+
+
+def test_population_entry_points_default_to_cuda_and_raise(no_cuda):
+    params, clients, fl = _setup()
+    sc = get_scenario("paper-fig1")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_async(lenet_loss, params, clients, fl, 1, engine="population")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_population(lenet_loss, params, clients, fl, 1, scenario=sc)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        collect_windows(sc, 4, fl, 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_population(sc, 4, fl)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CounterBehavior(sc, 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        population_scale.main(["--sizes", "100", "--windows", "1"])
+    res = run_async(lenet_loss, params, clients, fl, 1, engine="population",
+                    scenario=sc, device="cpu")
+    assert res.server_rounds == 1
 
 
 def test_lm_entry_points_default_to_cuda_and_raise(no_cuda):
