@@ -115,6 +115,23 @@ Phases, in order; any failure raises and exits non-zero:
    resume from round 5 bit-identical to the uninterrupted run (round log,
    params, ``PopState``) at the entry point's own cuDNN/TF32 flags, the
    caller's flags restored after each run.
+6d. Slice E, the distributed round substrate. Worlds of ranks that share
+   the card over gloo (``launch/multihost.spawn_world``; the kernels were
+   built before the spawn; the world is killed on the first rank failure or
+   at a timeout), paper config, 10 rounds after a warm-up, TF32 off and
+   cuDNN deterministic in every rank: (data=1, model=2) f32 batched and
+   fused (K2 = K3 = 10 a rank, K1 none), fused with a replicated ring (bit-
+   identical to the sharded ring), int8 fused (K4 = K3 = 10 a rank), the
+   ring bytes a rank equal to ``ring_device_bytes``; (2, 2) f32 fused, a
+   checkpoint at round 5 written by rank 0 and resumed bit-identically on
+   every rank, the cohort step against the single-rank cohort step, only
+   rank 0's sink file; (2, 1) fused (K1 = 10 a rank); (2, 2) on the CPU
+   against (2, 2) on the card within the path tolerances. Every rank's
+   round log, history, params and launch counts equal rank 0's bit for
+   bit; each card world's round log is within the JAX package's sharding
+   tolerances of the single-rank card run. Prints rounds/s, launches a
+   rank, the collectives' count, host ms and bytes a round per world, and
+   whether gloo's ``all_gather`` took CUDA tensors as they are.
 7. K5 (flash attention) against its plain version at Hymba-1.5B's shapes
    (B=2, S=4096, 25 query and 5 kv heads, D=64) in bf16 and f32, window
    1024 and 0 (causal), a ragged S (3001) and an S shorter than the window
@@ -138,8 +155,8 @@ Phases, in order; any failure raises and exits non-zero:
    gen 16).
 
 The last two lines of standard output are the kernels' JSON record (with
-each kernel's launches in the cohort runs and in the population runs beside
-the main path's) and
+each kernel's launches in the cohort runs, in the population runs and a
+rank in each Slice E run beside the main path's) and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1696,6 +1713,370 @@ def slice_d_phase(torch, np, kernel_ops, dataset, init, device: str):
     return out
 
 
+# Slice E: the sharded round substrate in worlds of ranks sharing the card
+# (gloo; NCCL refuses two ranks on one device). Each world runs the paper
+# config for 10 rounds after a 2-round warm-up (a rank's first run pays the
+# CUDA set-up). The round log is held to the single-rank card run at the JAX
+# package's own sharding tolerances (tests/test_round_body.py:326: weights
+# 1e-5, sq_dists 1e-3): the model-axis sum changes the order of eq. 3's sum.
+# The eval history holds the params' squared norm to 1e-5 relative (JAX's
+# 1e-5 is absolute on the quadratic problem's norm of ~10; LeNet's is ~10^2,
+# where one f32 ulp is ~1e-5) and the accuracy to one test sample of 1,024.
+# The params are held to PARAM_ATOL, the card-vs-CPU bound, for the same
+# reason: a data row trains K/d clients in one batch, and cuDNN's algorithm
+# (and rounding) depends on the batch (the (2, 1) mesh, with no model-axis
+# sum, moved the final params by 3.6e-6 on the card, 0 on the CPU).
+E_ROUNDS = 10
+E_TOL = {"weights": 1e-5, "sq_dists": 1e-3, "history": 1e-5,
+         "params": PARAM_ATOL}
+E_WORLD_TIMEOUT = 300.0
+E_KERNELS = ("fused_server", "sq_dists", "weighted_sum", "int8_sq_dists")
+
+
+def slice_e_rank(shape, device: str, work: str):
+    """One rank of a Slice E world (``launch/multihost.spawn_world``)."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import PAPER_FL
+    from repro_torch.core import init_cohort_state, make_cohort_step
+    from repro_torch.core import version_store
+    from repro_torch.kernels.ring_codec import ops as rc_ops
+    from repro_torch.kernels.weighted_agg import ops
+    from repro_torch.launch import multihost
+    from repro_torch.models import apply_lenet, init_lenet, lenet_loss
+    from repro_torch.obs import JsonlSink
+    from repro_torch.sim import get_scenario
+    from repro_torch.sim.engine import (
+        engine_state_from_tree,
+        engine_state_to_tree,
+        init_version_ring,
+        run_vectorized,
+    )
+
+    data, model = shape
+    rank = dist.get_rank()
+    if device == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True  # ranks agree bit for bit
+    mesh = multihost.make_round_mesh(data, model, device=device)
+    dev = multihost.mesh_device(mesh)
+    sc = get_scenario("paper-fig1")
+    clients, (xt, yt) = sc.make_dataset(PAPER_FL.num_clients,
+                                        samples_per_client=1500, seed=0,
+                                        noise=1.2)
+    streams = [c.rng_state() for c in clients]
+    init = init_lenet(torch.Generator().manual_seed(0))
+    x_ev = torch.from_numpy(xt[:1024]).to(dev)
+    y_ev = torch.from_numpy(yt[:1024]).to(dev)
+
+    def eval_fn(p):
+        return {"acc": float((apply_lenet(p, x_ev).argmax(-1) == y_ev)
+                             .float().mean()),
+                "wnorm": float(sum(torch.sum(v.double() ** 2)
+                                   for d in p.values() for v in d.values()))}
+
+    def counts():
+        return {"fused_server": ops.server_update.launches,
+                "sq_dists": ops.sq_dists.launches,
+                "weighted_sum": ops.weighted_sum.launches,
+                "int8_sq_dists": rc_ops.int8_sq_dists.launches}
+
+    def run(mode, codec="f32", total=E_ROUNDS, **kw):
+        for c, s in zip(clients, streams):  # fresh batch streams
+            c.set_rng_state(s)
+        fl = dc.replace(PAPER_FL, server_pass_mode=mode, ring_codec=codec)
+        ops.reset_launches()
+        rc_ops.reset_launches()
+        multihost.reset_collective_stats()
+        multihost.barrier()
+        t0 = time.perf_counter()
+        res = run_vectorized(lenet_loss, init, clients, fl, total,
+                             eval_fn=eval_fn, eval_every=5, seed=0, mesh=mesh,
+                             device=device, **kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        done = total - (kw["init_state"].version if "init_state" in kw else 0)
+        stats = dict(multihost.COLLECTIVE_STATS)
+        return {"round_log": res.round_log, "history": res.history,
+                "params": multihost.fetch_replicated(res.final_params),
+                "launches": counts(), "rounds_per_s": done / dt,
+                "collective_ms_per_round": stats["seconds"] / done * 1e3,
+                "collectives_per_round": stats["calls"] / done,
+                "collective_bytes_per_round": stats["bytes"] / done,
+                "state": res.final_state}
+
+    def ring_bytes(codec):
+        fl = dc.replace(PAPER_FL, ring_codec=codec)
+        spec, state = init_version_ring(init, fl, mesh=mesh)
+        got = sum(t.numel() * t.element_size()
+                  for t in version_store.state_tensors(state))
+        return got, version_store.ring_device_bytes(
+            fl, spec, getattr(spec, "model_shards", 1))
+
+    out = {"rank": rank, "runs": {}}
+    runs = out["runs"]
+    if device == "cuda":
+        run("fused", total=2)  # warm-up: CUDA and cuDNN set-up
+    if device == "cpu":  # the card run's counterpart only
+        runs["fused"] = run("fused")
+    elif shape == (1, 2):
+        out["gloo_cuda_all_gather"] = _probe_gloo_cuda(torch, dist, device)
+        runs["batched"] = run("batched")
+        runs["fused"] = run("fused")
+        runs["fused_replicated_ring"] = run("fused", shard_ring=False)
+        runs["int8_fused"] = run("fused", "int8")
+        out["ring_bytes"] = {c: ring_bytes(c) for c in ("f32", "int8")}
+    elif shape == (2, 2):
+        runs["fused"] = run("fused", capture_state=True)
+        half = run("fused", total=5, capture_state=True)
+        tree = engine_state_to_tree(half["state"])
+        path = str(Path(work) / "engine.npz")
+        save_checkpoint(path, tree, step=5)
+        multihost.barrier()
+        loaded, step = load_checkpoint(path, like=tree)
+        resumed = run("fused", init_state=engine_state_from_tree(loaded),
+                      capture_state=True)
+        full = runs["fused"]
+        ring_a, ring_b = resumed["state"].ring, full["state"].ring
+        out["resume_identical"] = (
+            step == 5 and resumed["round_log"] == full["round_log"]
+            and resumed["history"] == full["history"]
+            and _same_tree(np, resumed["params"], full["params"])
+            and np.array_equal(ring_a, ring_b))
+        out["ring_bytes"] = {"f32": ring_bytes("f32")}
+        # the cohort step at the paper config: C = K = 10 slots, 5 a row
+        for c, s in zip(clients, streams):
+            c.set_rng_state(s)
+        rounds = cohort_inputs(np, clients, PAPER_FL.buffer_size,
+                               PAPER_FL.local_steps, PAPER_FL.batch_size)
+        fl = dc.replace(PAPER_FL, server_pass_mode="fused")
+        cohort = {}
+        for name, m in (("mesh", mesh), ("single", None)):
+            step_fn = make_cohort_step(lenet_loss, fl, mesh=m, device=device)
+            state = init_cohort_state(
+                {l: {k: v.to(dev) for k, v in p.items()}
+                 for l, p in init.items()}, PAPER_FL.buffer_size)
+            ops.reset_launches()
+            traj = []
+            for batch in rounds:
+                state, mets = step_fn(state, batch)
+                traj.append((multihost.fetch_replicated(state.global_params),
+                             {k: float(v) for k, v in mets.items()}))
+            cohort[name] = {"traj": traj, "launches": counts()}
+        out["cohort"] = cohort
+        sink = JsonlSink(str(Path(work) / f"sink_rank{rank}.jsonl"))
+        sink.emit({"event": "slice_e", "rank": rank})
+        sink.close()
+    else:
+        runs["fused"] = run("fused")
+    for r in runs.values():
+        r.pop("state")
+    return out
+
+
+def _probe_gloo_cuda(torch, dist, device):
+    """Whether gloo's all_gather takes CUDA tensors as they are (the port
+    stages them through the host either way)."""
+    if device != "cuda":
+        return None
+    t = torch.arange(4, dtype=torch.float32, device="cuda")
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    try:
+        dist.all_gather(parts, t)
+        return "ok: " + str([p.device.type for p in parts])
+    except (RuntimeError, ValueError) as e:
+        return f"refused: {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+
+
+def _same_tree(np, a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree(np, a[k], b[k])
+                                            for k in a)
+    return a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def _max_param_err(np, a, b) -> float:
+    return max(float(np.max(np.abs(np.asarray(a[l][k], np.float64)
+                                   - np.asarray(b[l][k], np.float64))))
+               for l in b for k in b[l])
+
+
+def _as_run(torch, rec):
+    """A Slice E record in the shape ``compare_runs`` reads."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(round_log=rec["round_log"], final_params={
+        l: {k: torch.from_numpy(np_) for k, np_ in p.items()}
+        for l, p in rec["params"].items()})
+
+
+def e_check_close(np, got, ref, what: str) -> None:
+    """A sharded run against the single-rank card run, at the JAX package's
+    sharding tolerances (E_TOL)."""
+    check(len(got["round_log"]) == len(ref.round_log), f"{what}: rounds")
+    worst = dict.fromkeys(("weights", "sq_dists"), 0.0)
+    for a, b in zip(got["round_log"], ref.round_log):
+        check((a["version"], a["clients"], a["tau"])
+              == (b["version"], b["clients"], b["tau"]),
+              f"{what}: event timeline differs at v{a['version']}")
+        for f in worst:
+            err = float(np.max(np.abs(np.asarray(a[f], np.float64)
+                                      - np.asarray(b[f], np.float64))))
+            worst[f] = max(worst[f], err)
+    hist = max(abs(a["wnorm"] - b["wnorm"]) / max(1.0, abs(b["wnorm"]))
+               for a, b in zip(got["history"], ref.history))
+    acc = max(abs(a["acc"] - b["acc"]) for a, b in zip(got["history"],
+                                                        ref.history))
+    params = _max_param_err(np, got["params"], {
+        l: {k: v.cpu().numpy() for k, v in p.items()}
+        for l, p in ref.final_params.items()})
+    print(f"  {what}: weights {worst['weights']:.3g} (limit "
+          f"{E_TOL['weights']}), sq_dists {worst['sq_dists']:.3g} (limit "
+          f"{E_TOL['sq_dists']}), history wnorm rel {hist:.3g} (limit "
+          f"{E_TOL['history']}), acc {acc:.3g}, final params {params:.3g} "
+          f"(limit {E_TOL['params']})")
+    check(worst["weights"] <= E_TOL["weights"]
+          and worst["sq_dists"] <= E_TOL["sq_dists"]
+          and hist <= E_TOL["history"] and acc <= 1 / 1024 + 1e-7
+          and params <= E_TOL["params"], f"{what}: outside the tolerances")
+
+
+def slice_e_phase(torch, np, singles, card: str):
+    """The Slice E worlds on the card (and one on the CPU); ``singles`` are
+    single-rank card runs at the ranks' flags (fused, batched, int8)."""
+    from concurrent.futures import ThreadPoolExecutor as Pool
+
+    from repro_torch.launch.multihost import spawn_world
+
+    target = f"{Path(__file__).resolve()}:slice_e_rank"
+    root = ROOT / "build" / "slice_e"
+    root.mkdir(parents=True, exist_ok=True)
+
+    def world(shape, device):
+        work = tempfile.mkdtemp(prefix=f"{shape[0]}x{shape[1]}_{device}_",
+                                dir=root)
+        t = time.perf_counter()
+        ranks = spawn_world(target, shape[0] * shape[1],
+                            {"shape": shape, "device": device, "work": work},
+                            timeout=E_WORLD_TIMEOUT, workdir=work)
+        print(f"  world {shape[0]}x{shape[1]} on {device}: "
+              f"{time.perf_counter() - t:.1f} s, {len(ranks)} ranks")
+        return ranks, Path(work)
+
+    out = {"launches": {}, "rates": {}}
+    w12, _ = world((1, 2), "cuda")
+    w22, work22 = world((2, 2), "cuda")
+    with Pool(1) as pool:  # the CPU world beside the last card world
+        cpu_future = pool.submit(world, (2, 2), "cpu")
+        w21, _ = world((2, 1), "cuda")
+        w22_cpu, _ = cpu_future.result()
+    print(f"  gloo all_gather on CUDA tensors: "
+          f"{w12[0]['gloo_cuda_all_gather']}")
+
+    for name, ranks in (("1x2", w12), ("2x2", w22), ("2x1", w21),
+                        ("2x2 cpu", w22_cpu)):
+        first = ranks[0]
+        for r in ranks[1:]:
+            check(r["runs"].keys() == first["runs"].keys()
+                  and all(r["runs"][k]["round_log"]
+                          == first["runs"][k]["round_log"]
+                          and r["runs"][k]["history"]
+                          == first["runs"][k]["history"]
+                          and _same_tree(np, r["runs"][k]["params"],
+                                         first["runs"][k]["params"])
+                          and r["runs"][k]["launches"]
+                          == first["runs"][k]["launches"]
+                          for k in first["runs"]),
+                  f"{name}: rank {r['rank']} differs from rank 0")
+        for run_name, rec in first["runs"].items():
+            key = f"{name} {run_name}"
+            out["launches"][key] = rec["launches"]
+            out["rates"][key] = rec["rounds_per_s"]
+            print(f"  {key}: {rec['rounds_per_s']:.2f} rounds/s, launches "
+                  f"a rank {rec['launches']}, collectives "
+                  f"{rec['collectives_per_round']:g} a round, "
+                  f"{rec['collective_ms_per_round']:.3f} ms a round, "
+                  f"{rec['collective_bytes_per_round']:,.0f} B a round "
+                  f"(gathered, a rank)")
+        print(f"  {name}: every rank's round log, history, params and "
+              f"launches bit-identical to rank 0's")
+    none = dict.fromkeys(E_KERNELS, 0)
+    ten = E_ROUNDS
+    want = {("1x2", "batched"): {**none, "sq_dists": ten, "weighted_sum": ten},
+            ("1x2", "fused"): {**none, "sq_dists": ten, "weighted_sum": ten},
+            ("1x2", "fused_replicated_ring"):
+                {**none, "sq_dists": ten, "weighted_sum": ten},
+            ("1x2", "int8_fused"):
+                {**none, "int8_sq_dists": ten, "weighted_sum": ten},
+            ("2x2", "fused"): {**none, "sq_dists": ten, "weighted_sum": ten},
+            ("2x1", "fused"): {**none, "fused_server": ten}}
+    for (name, run_name), counts in want.items():
+        got = out["launches"][f"{name} {run_name}"]
+        check(got == counts, f"{name} {run_name}: launches {got}, "
+              f"expected {counts}")
+    fused, batched, int8 = singles
+    e_check_close(np, w12[0]["runs"]["batched"], batched,
+                  "1x2 batched vs single-rank batched")
+    e_check_close(np, w12[0]["runs"]["fused"], fused,
+                  "1x2 fused vs single-rank fused")
+    e_check_close(np, w12[0]["runs"]["int8_fused"], int8,
+                  "1x2 int8 fused vs single-rank int8")
+    e_check_close(np, w22[0]["runs"]["fused"], fused,
+                  "2x2 fused vs single-rank fused")
+    e_check_close(np, w21[0]["runs"]["fused"], fused,
+                  "2x1 fused vs single-rank fused")
+    compare_runs(np, _as_run(torch, w22[0]["runs"]["fused"]),
+                 _as_run(torch, w22_cpu[0]["runs"]["fused"]),
+                 "2x2 fused on cuda vs 2x2 on cpu (gloo)")
+    a, b = w12[0]["runs"]["fused"], w12[0]["runs"]["fused_replicated_ring"]
+    check(a["round_log"] == b["round_log"] and a["history"] == b["history"]
+          and _same_tree(np, a["params"], b["params"]),
+          "1x2: sharded ring differs from the replicated ring")
+    print("  1x2: sharded ring == replicated ring: round log, history and "
+          "params bit-identical")
+    for name, ranks in (("1x2", w12), ("2x2", w22)):
+        for r in ranks:
+            for codec, (got, quoted) in r["ring_bytes"].items():
+                check(got == quoted, f"{name} rank {r['rank']} {codec} ring "
+                      f"bytes {got} vs ring_device_bytes {quoted}")
+        print(f"  {name}: ring bytes a rank "
+              f"{ {c: v[0] for c, v in ranks[0]['ring_bytes'].items()} } "
+              f"== ring_device_bytes")
+    check(all(r["resume_identical"] for r in w22),
+          "2x2: the resumed run differs from the uninterrupted one")
+    print("  2x2: checkpoint at round 5 (rank 0 wrote it), resumed to "
+          f"{E_ROUNDS} on every rank: round log, history, params and ring "
+          "bit-identical")
+    cohort = w22[0]["cohort"]
+    check(cohort["mesh"]["launches"] == {**none, "sq_dists": ten,
+                                         "weighted_sum": ten}
+          and cohort["single"]["launches"] == {**none, "fused_server": ten},
+          f"2x2 cohort launches {cohort['mesh']['launches']} / "
+          f"{cohort['single']['launches']}")
+    perr = merr = 0.0
+    for (pa, ma), (pb, mb) in zip(cohort["mesh"]["traj"],
+                                  cohort["single"]["traj"]):
+        perr = max(perr, _max_param_err(np, pa, pb))
+        merr = max(merr, max(abs(ma[k] - mb[k]) / max(1.0, abs(mb[k]))
+                             for k in mb))
+    check(perr <= E_TOL["params"] and merr <= E_TOL["weights"],
+          f"2x2 cohort vs single-rank cohort: params {perr}, metrics {merr}")
+    print(f"  2x2 cohort step (fused, {COHORT_ROUNDS} rounds of straggler "
+          f"masks) vs single-rank: params {perr:.3g}, metrics rel {merr:.3g};"
+          f" launches a rank {cohort['mesh']['launches']}")
+    sinks = sorted(p.name for p in work22.glob("sink_rank*.jsonl"))
+    check(sinks == ["sink_rank0.jsonl"], f"2x2 sink files {sinks}")
+    print(f"  2x2: only rank 0 wrote its sink file ({sinks}) ({card})")
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -1800,8 +2181,10 @@ def main() -> int:
     def eval_fn_for(device):
         x = torch.from_numpy(xt[:1024]).to(device)
         y = torch.from_numpy(yt[:1024]).to(device)
-        return lambda p: {"acc": float(
-            (apply_lenet(p, x).argmax(-1) == y).float().mean())}
+        return lambda p: {
+            "acc": float((apply_lenet(p, x).argmax(-1) == y).float().mean()),
+            "wnorm": float(sum(torch.sum(v.double() ** 2)
+                               for d in p.values() for v in d.values()))}
 
     def run(mode, device, codec="f32", total=rounds, engine="vectorized",
             **kw):
@@ -2068,6 +2451,21 @@ def main() -> int:
           f"{slice_d['peak_1e6']:.1f} MiB above the pool")
     print(f"  phase: {time.perf_counter() - t:.1f} s")
 
+    # 6d. Slice E: the sharded round substrate in worlds of ranks on the
+    # card; the single-rank references at the ranks' flags (deterministic
+    # cuDNN, so that ranks agree bit for bit)
+    t = time.perf_counter()
+    print(f"Slice E: worlds of ranks on one card (gloo), paper config, "
+          f"{E_ROUNDS} rounds")
+    torch.backends.cudnn.deterministic = True
+    singles = (run("fused", "cuda")[0], run("batched", "cuda")[0],
+               run("auto", "cuda", "int8")[0])
+    torch.backends.cudnn.deterministic = False
+    slice_e = slice_e_phase(torch, np, singles, card)
+    print(f"  Slice E numbers ({card}): rounds/s "
+          + ", ".join(f"{k} {v:.2f}" for k, v in slice_e["rates"].items()))
+    print(f"  phase: {time.perf_counter() - t:.1f} s")
+
     # 7. K5 and K6 against their plain versions
     t = time.perf_counter()
     print("K5 / K6 phases (median of 10 kernel calls, CUDA events):")
@@ -2121,7 +2519,10 @@ def main() -> int:
             "device_ms": r["device_ms"],
             "library_device_ms": r["library_device_ms"],
             "cohort_launches": slice_c["launches"][name_k],
-            "population_launches": slice_d["launches"][name_k]})
+            "population_launches": slice_d["launches"][name_k],
+            "slice_e_launches_per_rank": {
+                key: counts.get(name_k, 0)
+                for key, counts in slice_e["launches"].items()}})
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,12 @@ written by either package (``sim/engine.py::engine_state_to_tree``)
 loads in the other. The write is atomic: a temp file in the target
 directory, then a rename.
 
-Not ported: the JAX package's multi-process coordinator gating comes with
-the distributed substrate (ROADMAP.md, Slice E).
+Multi-process (``sharding/collectives.py``): ``save_checkpoint`` is gated on
+the coordinator. Every rank converts its leaves to host numpy, and a
+``LocalShard`` leaf (a rank's slice of a sharded tensor) is gathered first,
+a collective, so every rank must call save; only rank 0 writes. A
+checkpoint of a sharded run therefore holds the whole (R, Np) ring and
+loads into an unsharded run and into the JAX package.
 """
 from __future__ import annotations
 
@@ -19,6 +23,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.sharding.collectives import (
+    LocalShard,
+    fetch_replicated,
+    is_coordinator,
+)
 
 
 def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -36,16 +46,22 @@ def _unflatten(like: Any, leaves: Dict[str, Any], prefix: str = "") -> Any:
 
 
 def _to_numpy(v: Any) -> np.ndarray:
-    if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
+    if isinstance(v, (torch.Tensor, LocalShard)):
+        return fetch_replicated(v)
     return np.asarray(v)
 
 
 def save_checkpoint(path: str, tree: Any, step: Optional[int] = None) -> None:
-    """Write ``tree`` to ``path`` atomically (temp file + rename)."""
+    """Write ``tree`` to ``path`` atomically (temp file + rename).
+
+    In a multi-process world every rank must call this (a ``LocalShard``
+    leaf is gathered, a collective); only rank 0 writes.
+    """
     payload = {key: _to_numpy(v) for key, v in _flatten(tree)}
     if step is not None:
         payload["__step__"] = np.asarray(step)
+    if not is_coordinator():
+        return
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")

@@ -22,7 +22,7 @@ Two deployment mappings (DESIGN.md §2.1):
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -77,6 +77,7 @@ def init_cohort_state(params: Any, cohort: int) -> CohortState:
 
 
 def make_cohort_step(loss_fn: Callable, fl: FLConfig, *,
+                     mesh: Optional[Any] = None,
                      device: DeviceLike = "cuda") -> Callable:
     """Build the replicated-client FL round for state on ``device``.
 
@@ -89,15 +90,20 @@ def make_cohort_step(loss_fn: Callable, fl: FLConfig, *,
     (new_state, metrics)``; the state is never written in place.
     ``fl.server_pass_mode`` resolves on ``device`` (``auto``: fused on
     CUDA).
+
+    ``mesh`` shards the C slots over ``data`` inside the round body and the
+    flat-vector server pass over ``model`` (``core/round_body.py``); every
+    rank steps the same replicated state with the same batch and gets the
+    same new state. With no mesh the step is the single-device one.
     """
     dev = resolve_device(device)
     bodies: Dict[Any, Callable] = {}  # one round body per params layout
 
     def step(state: CohortState, batch: Dict[str, Any]):
         params = state.global_params
-        spec = make_flat_spec(params, fl.server_pass_block_n)
+        spec = make_flat_spec(params, fl.server_pass_block_n, mesh)
         if spec not in bodies:
-            bodies[spec] = make_round_body(loss_fn, fl, dev, spec)
+            bodies[spec] = make_round_body(loss_fn, fl, dev, spec, mesh=mesh)
         arrival = torch.as_tensor(batch["arrival"]).to(dev, torch.float32)
         tau = (state.version - state.client_version).to(torch.float32)
 

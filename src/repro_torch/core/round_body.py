@@ -27,10 +27,24 @@ Three entry shapes, as in the JAX package's ``core/round_body.py``:
   weight runs the same ``core/weighting.py`` policy code as the exact
   paths (``s_min`` cap included), with the eq. 3 reference pinned to the
   current model. It reaches no kernel: its sums are over one client.
+
+Mesh (``make_round_body(..., mesh=)``, the JAX package's ``shard_map``s):
+every rank holds the replicated params. Over ``data`` the K clients split
+into d rows of K/d, each row training and probing its own; over ``model``
+the server pass runs on each rank's slice of the flat vectors
+(``apply_server_round``). The data movement JAX's partitioner placed is
+written out as all-gathers, all exact: the full bases a row trains from
+(over ``model``, when the ring holds slices), the deltas and probe losses
+(over ``data``, each rank keeping its model slice), the cohort's end params
+(over ``data``), and the new flat vector (over ``model``), so the params
+stay replicated. A K that does not divide ``data`` warns and trains every
+client on every rank. No mesh, or a 1 x 1 mesh, runs the same body with no
+slice taken and no collective.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+import warnings
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 from torch.func import vmap
@@ -39,10 +53,13 @@ from repro_torch.configs.base import FLConfig
 from repro_torch.core.client import make_local_update_fn
 from repro_torch.core.server_pass import (
     FlatSpec,
+    ShardedFlatSpec,
     apply_server_round,
     flatten_stacked,
     flatten_tree,
+    local_columns,
     resolve_mode,
+    shard_bounds,
     unflatten_like,
     unflatten_stacked,
 )
@@ -52,12 +69,14 @@ from repro_torch.core.weighting import (
     staleness_degree,
     statistical_effect,
 )
+from repro_torch.sharding.collectives import all_gather_cat
+from repro_torch.sharding.specs import DATA_AXIS, MODEL_AXIS, mesh_axis_size
 from repro_torch.utils.device import DeviceLike
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_sub
 
 
 def make_round_body(loss_fn: Callable, fl: FLConfig, device: DeviceLike,
-                    spec: FlatSpec) -> Callable:
+                    spec: FlatSpec, *, mesh: Optional[Any] = None) -> Callable:
     """Build the round body for tensors on ``device`` with params laid out
     as ``spec`` (``make_flat_spec``; the layout never changes in a run).
 
@@ -72,6 +91,12 @@ def make_round_body(loss_fn: Callable, fl: FLConfig, device: DeviceLike,
     ``client_params`` (the cohort; (K, ...) leaves) the K slots train from
     their current local state, upload ``base - end`` and hand back their
     ``end_params``; ``arrival_mask`` (K,) {0, 1} goes to the server pass.
+
+    ``mesh`` shards the round (module docstring); ``spec`` is then made on
+    it (``make_flat_spec(..., mesh)``). ``bases_flat`` may be whole rows or,
+    under a model-sharded spec, this rank's slice of them (the sharded
+    ring's rows); ``x`` and the returned ``new_x`` are whole, and the info
+    is the same on every rank.
     """
     local_update = make_local_update_fn(loss_fn, fl.local_steps, fl.local_lr,
                                         fl.local_momentum)
@@ -79,22 +104,58 @@ def make_round_body(loss_fn: Callable, fl: FLConfig, device: DeviceLike,
     clients_update = vmap(lambda base, batch: local_update(base, batch)[0])
     low_precision = any(dt != torch.float32 for dt in spec.dtypes)
 
+    data_shards = mesh_axis_size(mesh, DATA_AXIS)
+    data_group = mesh.get_group(DATA_AXIS) if data_shards > 1 else None
+    data_row = mesh.get_local_rank(DATA_AXIS) if data_shards > 1 else 0
+    model_group = (mesh.get_group(MODEL_AXIS)
+                   if isinstance(spec, ShardedFlatSpec) else None)
+    lo, hi = shard_bounds(spec)  # all of the flat vector without a mesh
+
     def body(params, x, bases_flat, batch, probe, data_sizes, taus,
              sq_dists=None, *, client_params=None, arrival_mask=None):
+        k = bases_flat.shape[0]
+        if data_shards > 1 and k % data_shards:
+            warnings.warn(
+                f"K={k} clients do not divide the data axis ({data_shards} "
+                "shards): every rank trains all K clients (replicated over "
+                "data). Pick K a multiple of the data-axis size to shard it.",
+                RuntimeWarning, stacklevel=2)
+        split = data_group is not None and k % data_shards == 0
+        start = bases_flat
+        if split:  # this data row's K/d clients
+            rows = slice(data_row * k // data_shards,
+                         (data_row + 1) * k // data_shards)
+            batch, probe, start = tree_map(lambda t: t[rows],
+                                           (batch, probe, bases_flat))
+            if client_params is not None:
+                client_params = tree_map(lambda t: t[rows], client_params)
+        sliced = bases_flat.shape[1] != spec.n_padded
+        if sliced:  # the whole rows these clients train from
+            start = all_gather_cat(start, model_group, dim=1)
         if client_params is None:
-            deltas = clients_update(unflatten_stacked(spec, bases_flat), batch)
+            deltas = clients_update(unflatten_stacked(spec, start), batch)
         else:
             # in-flight slots advance M steps from their CURRENT local state;
             # the upload is the cumulative delta from the pulled base
             end_params = tree_map(lambda c, d: (c - d).to(c.dtype),
                                   client_params,
                                   clients_update(client_params, batch))
-            deltas = tree_sub(unflatten_stacked(spec, bases_flat), end_params)
+            deltas = tree_sub(unflatten_stacked(spec, start), end_params)
+            if split:
+                end_params = tree_map(
+                    lambda t: all_gather_cat(t, data_group), end_params)
         losses = vmap(lambda pb: loss_fn(params, pb)[0])(probe)
+        losses = losses.to(torch.float32)
+        deltas = local_columns(spec, flatten_stacked(spec, deltas))
+        if split:
+            deltas = all_gather_cat(deltas, data_group)
+            losses = all_gather_cat(losses, data_group)
         new_x, info = apply_server_round(
-            x, bases_flat, flatten_stacked(spec, deltas),
-            losses.to(torch.float32), data_sizes, taus, fl,
-            arrival_mask=arrival_mask, mode=mode, sq_dists=sq_dists)
+            x[lo:hi], bases_flat if sliced else local_columns(spec, bases_flat),
+            deltas, losses, data_sizes, taus, fl, arrival_mask=arrival_mask,
+            mode=mode, sq_dists=sq_dists, mesh=mesh)
+        if model_group is not None:
+            new_x = all_gather_cat(new_x, model_group)
         new_params = unflatten_like(spec, new_x)
         if client_params is not None:
             return new_params, end_params, info
@@ -109,7 +170,8 @@ def make_round_body(loss_fn: Callable, fl: FLConfig, device: DeviceLike,
 
 
 def make_ring_round(loss_fn: Callable, fl: FLConfig, device: DeviceLike,
-                    spec: FlatSpec) -> Callable:
+                    spec: FlatSpec, *, mesh: Optional[Any] = None,
+                    shard_ring: bool = True) -> Callable:
     """The engine flavour: version-store gather -> round body -> store write.
 
     Returns ``ring_round(params, ring, slots, batch, probe, sizes, taus,
@@ -123,19 +185,26 @@ def make_ring_round(loss_fn: Callable, fl: FLConfig, device: DeviceLike,
     expansion for delta), so the K decoded rows feed only the K-client
     local update; f32's ``distance_sq`` is None and eq. 3 stays in the
     server pass.
+
+    ``mesh`` shards the round (``make_round_body``); with ``shard_ring`` and
+    a model-sharded ``spec`` the ring holds this rank's slice of each row
+    (``build_ring(..., mesh=, shard_ring=True)``), so the gather and the
+    write stay on the rank's own columns.
     """
-    body = make_round_body(loss_fn, fl, device, spec)
+    body = make_round_body(loss_fn, fl, device, spec, mesh=mesh)
     codec = resolve_codec(fl)
     use_kernel = resolve_mode(fl.server_pass_mode, device) in ("batched",
                                                                 "fused")
+    lo, hi = (shard_bounds(spec) if shard_ring else (0, spec.n_padded))
 
     def ring_round(params, ring, slots, batch, probe, sizes, taus, new_slot):
         x = flatten_tree(spec, params)
-        bases = codec.decode(spec, ring, slots)  # (K, n_padded) flat rows
-        dists = codec.distance_sq(spec, ring, slots, x, use_kernel=use_kernel)
+        bases = codec.decode(spec, ring, slots)  # (K, hi - lo) flat rows
+        dists = codec.distance_sq(spec, ring, slots, x, use_kernel=use_kernel,
+                                  mesh=mesh)
         new_params, new_x, info = body(params, x, bases, batch, probe, sizes,
                                        taus, sq_dists=dists)
-        ring = codec.encode(spec, ring, new_slot, new_x)
+        ring = codec.encode(spec, ring, new_slot, new_x[lo:hi])
         return new_params, ring, info
 
     return ring_round

@@ -29,6 +29,18 @@ Modes (``FLConfig.server_pass_mode``):
 
 On CPU tensors the ``ops`` wrappers run their plain versions, so every
 mode runs on the CPU too; on CUDA tensors they launch their kernels.
+
+Model sharding (the JAX package's ``shard_map`` over ``model``):
+``make_flat_spec(..., mesh=)`` returns a ``ShardedFlatSpec`` padded to a
+multiple of ``block_n * model_shards``, so every rank holds a whole number
+of tiles, and ``apply_server_round(..., mesh=)`` takes this rank's slice of
+the flat vectors. Each rank computes its partial eq. 3 distances through K2
+(both kernel modes: K1 needs the global distances before its weights, so
+it does not run under ``model > 1``); the partials meet in one all-gather
+over ``model`` and are summed in rank order on every rank
+(``sharding/collectives.py::sum_in_rank_order``). The (K,) weighting is then
+replicated and eq. 5 runs on the rank's slice through K3. Precomputed
+``sq_dists`` arrive summed already: no collective at all.
 """
 from __future__ import annotations
 
@@ -46,6 +58,11 @@ from repro_torch.core.weighting import (
     statistical_effect,
 )
 from repro_torch.kernels.weighted_agg import ops as _ops
+from repro_torch.sharding.collectives import (
+    all_gather_cat,
+    sum_in_rank_order,
+)
+from repro_torch.sharding.specs import MODEL_AXIS, mesh_axis_size
 from repro_torch.utils.device import DeviceLike
 from repro_torch.utils.tree import Path, tree_leaves, tree_paths, tree_unflatten
 
@@ -78,8 +95,33 @@ class FlatSpec(NamedTuple):
     block_n: int  # the tile the JAX package pads to
 
 
-def make_flat_spec(template: Any, block_n: int = 0) -> FlatSpec:
-    """Build the flatten layout for ``template`` (a nested dict of tensors)."""
+class ShardedFlatSpec(NamedTuple):
+    """FlatSpec plus the mesh layout of the flat vector.
+
+    The same leading fields as ``FlatSpec`` (the flatten helpers take
+    either), but ``n_padded`` is a multiple of ``block_n * model_shards``,
+    so the rank at ``model`` coordinate j holds the whole tiles
+    ``[j * n_padded / m, (j + 1) * n_padded / m)``. Zero padding is
+    distance- and sum-neutral.
+    """
+
+    paths: Tuple[Path, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[torch.dtype, ...]
+    sizes: Tuple[int, ...]
+    n: int
+    n_padded: int
+    block_n: int
+    mesh: Any  # the DeviceMesh carrying the ``model`` axis
+    model_shards: int  # size of the model axis (> 1)
+
+
+def make_flat_spec(template: Any, block_n: int = 0, mesh: Any = None):
+    """Build the flatten layout for ``template`` (a nested dict of tensors).
+
+    With ``mesh`` carrying a ``model`` axis of size m > 1, returns a
+    ``ShardedFlatSpec`` padded to a ``block_n * m`` multiple.
+    """
     paths = tuple(tree_paths(template))
     leaves = tree_leaves(template)
     shapes = tuple(tuple(x.shape) for x in leaves)
@@ -87,8 +129,30 @@ def make_flat_spec(template: Any, block_n: int = 0) -> FlatSpec:
     sizes = tuple(int(x.numel()) for x in leaves)
     n = sum(sizes)
     block = block_n or _ops.pick_block(n)
+    shards = mesh_axis_size(mesh, MODEL_AXIS)
+    if shards > 1:
+        return ShardedFlatSpec(paths, shapes, dtypes, sizes, n,
+                               _ops.pad_to(n, block * shards), block, mesh,
+                               shards)
     return FlatSpec(paths, shapes, dtypes, sizes, n, _ops.pad_to(n, block),
                     block)
+
+
+def shard_bounds(spec) -> Tuple[int, int]:
+    """[lo, hi) of this rank's slice of the flat vector (all of it for an
+    unsharded spec)."""
+    if not isinstance(spec, ShardedFlatSpec):
+        return 0, spec.n_padded
+    per = spec.n_padded // spec.model_shards
+    j = spec.mesh.get_local_rank(MODEL_AXIS)
+    return j * per, (j + 1) * per
+
+
+def local_columns(spec, mat: torch.Tensor) -> torch.Tensor:
+    """This rank's contiguous slice of the last axis of ``mat``, whose last
+    axis is the whole flat layout (a copy where the slice is strided)."""
+    lo, hi = shard_bounds(spec)
+    return mat[..., lo:hi].contiguous()
 
 
 def flatten_tree(spec: FlatSpec, tree: Any) -> torch.Tensor:
@@ -137,7 +201,8 @@ def apply_server_round(x: torch.Tensor, bases: torch.Tensor,
                        fl: FLConfig, *,
                        arrival_mask: Optional[torch.Tensor] = None,
                        mode: str = "reference",
-                       sq_dists: Optional[torch.Tensor] = None
+                       sq_dists: Optional[torch.Tensor] = None,
+                       mesh: Any = None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """eq. 3 + 4 + 5 on flat tensors. Returns (new_x, info dict of (K,)).
 
@@ -147,6 +212,11 @@ def apply_server_round(x: torch.Tensor, bases: torch.Tensor,
     are eq. 3 distances the compressed ring codecs computed themselves:
     the pass then skips its own eq. 3 (and K1), weighting those distances
     and reducing through K3 in both kernel modes.
+
+    With ``mesh`` carrying a ``model`` axis of size m > 1, x, bases, deltas
+    and the returned new_x are this rank's slice (``shard_bounds`` of a
+    ``ShardedFlatSpec``): the partial distances meet in one all-gather over
+    ``model``, summed in rank order, and the info is the same on every rank.
     """
     if mode not in ("reference", "batched", "fused"):
         raise ValueError(f"unknown concrete mode {mode!r}")
@@ -155,20 +225,23 @@ def apply_server_round(x: torch.Tensor, bases: torch.Tensor,
     mask = (torch.ones((k,), dtype=torch.float32, device=bases.device)
             if arrival_mask is None else arrival_mask.to(torch.float32))
     taus = taus.to(torch.float32)
-    if sq_dists is not None:
-        dists = sq_dists.to(torch.float32)
-        upd, s, w = _weight_and_reduce(
-            dists, deltas, p, taus, mask, fl,
-            use_kernel=mode in ("batched", "fused"))
-    elif mode == "fused":
+    sharded = mesh_axis_size(mesh, MODEL_AXIS) > 1
+    if mode == "fused" and sq_dists is None and not sharded:
         upd, dists, w = _ops.server_update(
             x, bases, deltas, p, taus, mask, policy=fl.weighting,
             eta_g=fl.global_lr, s_min=fl.s_min, poly_a=fl.poly_a,
             hinge_a=fl.hinge_a, hinge_b=fl.hinge_b, normalize=fl.normalize)
         s = staleness_degree(dists, arrival_mask=mask)
     else:
-        use_kernel = mode == "batched"
-        dists = _sq_dists(x, bases, use_kernel=use_kernel)
+        # K1 weights from the distances it sums itself: with precomputed
+        # or per-shard distances fused mode runs K2 + K3 instead
+        use_kernel = mode in ("batched", "fused")
+        if sq_dists is not None:
+            dists = sq_dists.to(torch.float32)
+        else:
+            dists = _sq_dists(x, bases, use_kernel=use_kernel)
+            if sharded:
+                dists = sum_in_rank_order(dists, mesh.get_group(MODEL_AXIS))
         upd, s, w = _weight_and_reduce(dists, deltas, p, taus, mask, fl,
                                        use_kernel=use_kernel)
     info = {"sq_dists": dists, "staleness": s, "stat_effect": p,
@@ -206,7 +279,7 @@ def _weight_and_reduce(dists, deltas, p, taus, mask, fl: FLConfig, *,
 
 def make_server_pass(fl: FLConfig, fresh_loss_fn: Optional[Callable], *,
                      mode: Optional[str] = None,
-                     device: DeviceLike = "cuda") -> Callable:
+                     device: DeviceLike = "cuda", mesh: Any = None) -> Callable:
     """The server pass over stacked trees, memoized per (fl, fresh_loss_fn,
     mode, device), as the JAX package's ``make_server_pass``.
 
@@ -220,23 +293,27 @@ def make_server_pass(fl: FLConfig, fresh_loss_fn: Optional[Callable], *,
     the batch axis. ``mode`` (default ``fl.server_pass_mode``) resolves on
     ``device``: ``auto`` is ``fused`` on CUDA, ``reference`` on the CPU.
     Everything stays on the device.
+
+    ``mesh`` shards the flat-vector round over its ``model`` axis: every
+    rank passes the same replicated trees, runs the pass on its slice, and
+    gets the whole new params back (one all-gather over ``model``).
     """
     return _server_pass(fl, fresh_loss_fn,
                         fl.server_pass_mode if mode is None else mode,
-                        torch.device(device))
+                        torch.device(device), mesh)
 
 
 @functools.lru_cache(maxsize=64)
 def _server_pass(fl: FLConfig, fresh_loss_fn: Optional[Callable], mode: str,
-                 device: torch.device) -> Callable:
+                 device: torch.device, mesh: Any) -> Callable:
     mode_ = resolve_mode(mode, device)
 
     def pass_fn(params, deltas_st, bases_st, probes, probe_mask, data_sizes,
                 taus, precomputed_losses=None):
-        spec = make_flat_spec(params, fl.server_pass_block_n)
-        x = flatten_tree(spec, params)
-        d = flatten_stacked(spec, deltas_st)
-        b = flatten_stacked(spec, bases_st)
+        spec = make_flat_spec(params, fl.server_pass_block_n, mesh)
+        x = local_columns(spec, flatten_tree(spec, params))
+        d = local_columns(spec, flatten_stacked(spec, deltas_st))
+        b = local_columns(spec, flatten_stacked(spec, bases_st))
         data_sizes_ = data_sizes.to(torch.float32)
         if precomputed_losses is not None:
             losses = precomputed_losses.to(torch.float32)
@@ -248,7 +325,9 @@ def _server_pass(fl: FLConfig, fresh_loss_fn: Optional[Callable], mode: str,
             if probe_mask is not None:
                 losses = torch.where(probe_mask > 0, losses, 1.0)
         new_x, info = apply_server_round(x, b, d, losses, data_sizes_, taus,
-                                         fl, mode=mode_)
+                                         fl, mode=mode_, mesh=mesh)
+        if isinstance(spec, ShardedFlatSpec):
+            new_x = all_gather_cat(new_x, mesh.get_group(MODEL_AXIS))
         return unflatten_like(spec, new_x), info
 
     return pass_fn

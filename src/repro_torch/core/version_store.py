@@ -1,4 +1,4 @@
-"""Codec-pluggable compressed version store on one device.
+"""Codec-pluggable compressed version store.
 
 The paper's eq. 3 staleness weighting needs the server to retain
 R = max_staleness + 1 model versions. Stored as R full f32 flat rows the
@@ -37,20 +37,45 @@ JAX package's layout, so a ring written by either package restores in the
 other. Restore is codec-aware: a layout or codec mismatch raises naming
 the codec and the expected layout.
 
-Not ported: the model-sharded branch (``pspecs`` and the ``mesh`` argument
-of the JAX package) comes with Slice E (ROADMAP.md).
+Model sharding: with a mesh whose ``model`` axis has size m > 1,
+``build_ring(..., mesh=, shard_ring=True)`` keeps on each rank only its
+slice of every row, on the codec's ``pspecs`` (f32 and int8 rows
+``P(None, "model")``: ``R * n_padded / m`` values a rank), and
+``Int8Codec.distance_sq(..., mesh=)`` runs K4 on the rank's codes, scale
+and zero, the partials summed in rank order over ``model``.
+``shard_ring=False`` replicates the rows on the same mesh (the bit-parity
+reference). The delta codec on a mesh is not ported: its top-m over a
+model-sharded row needs a cross-shard top-k (Slice E2, ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.server_pass import flatten_tree, make_flat_spec
+from repro_torch.core.server_pass import (
+    flatten_tree,
+    local_columns,
+    make_flat_spec,
+    shard_bounds,
+)
 from repro_torch.kernels.ring_codec import ops as _cops
 from repro_torch.kernels.ring_codec import ref as _cref
+from repro_torch.sharding.collectives import (
+    LocalShard,
+    local_slice,
+    mesh_spans_processes,
+    sum_in_rank_order,
+)
+from repro_torch.sharding.specs import (
+    MODEL_AXIS,
+    PartitionSpec,
+    ring_codes_pspec,
+    ring_pspec,
+    ring_scales_pspec,
+)
 from repro_torch.utils.tree import tree_leaves
 
 CODECS = ("f32", "int8", "delta")
@@ -60,20 +85,13 @@ def resolve_qblock(spec, requested: int) -> int:
     """Largest power-of-two-ish divisor of the flat tile <= requested.
 
     The quantization block divides ``spec.block_n`` and therefore
-    ``n_padded``; ``block_n`` is a multiple of 128, so halving from the
-    requested size always ends at a valid block.
+    ``n_padded`` and the per-shard slice; ``block_n`` is a multiple of 128,
+    so halving from the requested size always ends at a valid block.
     """
     qb = max(1, int(requested))
     while spec.block_n % qb:
         qb //= 2
     return max(qb, 1)
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a model-sharded version store is not ported; it comes with the "
-            "distributed substrate (ROADMAP.md, Slice E)")
 
 
 # ---------------------------------------------------------------------------
@@ -132,18 +150,23 @@ class F32Codec:
         state[slot] = row
         return state
 
-    def distance_sq(self, spec, state, slots, x, *, use_kernel=False):
+    def distance_sq(self, spec, state, slots, x, *, use_kernel=False,
+                    mesh=None):
         """None: the server pass computes eq. 3 from the decoded rows."""
         return None
+
+    def pspecs(self, spec) -> List[PartitionSpec]:
+        return [ring_pspec()]
 
     def expected_layout(self, spec, depth: int) -> Dict[str, Tuple]:
         return {"ring": ((depth, spec.n_padded), "float32")}
 
-    def device_bytes(self, spec, depth: int) -> int:
-        return depth * spec.n_padded * 4
+    def device_bytes(self, spec, depth: int, model_shards: int = 1) -> int:
+        per_shard_np = -(-spec.n_padded // model_shards)
+        return depth * per_shard_np * 4
 
     def state_to_host(self, state) -> np.ndarray:
-        return state.detach().cpu().numpy().astype(np.float32)
+        return _host(state, np.float32)
 
     def state_from_host(self, spec, depth: int, host, device):
         if isinstance(host, dict):
@@ -209,15 +232,37 @@ class Int8Codec:
         return state
 
     def distance_sq(self, spec, state: Int8RingState, slots, x, *,
-                    use_kernel=False):
+                    use_kernel=False, mesh=None):
         """Fused dequantize-distance: K4 on CUDA tensors under a kernel
-        mode (``batched``/``fused``); the plain version otherwise."""
-        args = (x, state.codes.index_select(0, slots),
-                state.scale.index_select(0, slots),
-                state.zero.index_select(0, slots))
+        mode (``batched``/``fused``); the plain version otherwise.
+
+        ``x`` is the whole flat vector. Under a model-sharded ``spec`` each
+        rank runs it on its slice of x and of the codes, scale and zero
+        (sliced here from a replicated ring), and the partials meet in one
+        all-gather over ``model``, summed in rank order.
+        """
+        qb = self._qb(spec)
+        codes = state.codes.index_select(0, slots)
+        scale = state.scale.index_select(0, slots)
+        zero = state.zero.index_select(0, slots)
+        sharded = getattr(spec, "model_shards", 1) > 1
+        if sharded:
+            lo, hi = shard_bounds(spec)
+            x = x[lo:hi]
+            if codes.shape[1] == spec.n_padded:  # a replicated ring
+                codes = local_columns(spec, codes)
+                scale = scale[:, lo // qb:hi // qb].contiguous()
+                zero = zero[:, lo // qb:hi // qb].contiguous()
         if use_kernel:
-            return _cops.int8_sq_dists(*args, qblock=self._qb(spec))
-        return _cref.int8_sq_dists_ref(*args, self._qb(spec))
+            part = _cops.int8_sq_dists(x, codes, scale, zero, qblock=qb)
+        else:
+            part = _cref.int8_sq_dists_ref(x, codes, scale, zero, qb)
+        if not sharded:
+            return part
+        return sum_in_rank_order(part, mesh.get_group(MODEL_AXIS))
+
+    def pspecs(self, spec) -> List[PartitionSpec]:
+        return [ring_codes_pspec(), ring_scales_pspec(), ring_scales_pspec()]
 
     def expected_layout(self, spec, depth: int) -> Dict[str, Tuple]:
         nb = self._nblocks(spec)
@@ -225,8 +270,10 @@ class Int8Codec:
                 "scale": ((depth, nb), "float32"),
                 "zero": ((depth, nb), "float32")}
 
-    def device_bytes(self, spec, depth: int) -> int:
-        return depth * (spec.n_padded + 2 * self._nblocks(spec) * 4)
+    def device_bytes(self, spec, depth: int, model_shards: int = 1) -> int:
+        per_shard_np = -(-spec.n_padded // model_shards)
+        per_shard_nb = -(-self._nblocks(spec) // model_shards)
+        return depth * (per_shard_np + 2 * per_shard_nb * 4)
 
     def state_to_host(self, state: Int8RingState) -> Dict[str, np.ndarray]:
         return {"codec": np.asarray(self.name),
@@ -311,7 +358,7 @@ class DeltaCodec:
         return state._replace(host_writes=state.host_writes + 1)
 
     def distance_sq(self, spec, state: DeltaRingState, slots, x, *,
-                    use_kernel=False):
+                    use_kernel=False, mesh=None):
         """Exact eq. 3 distances without densifying the rows:
         ||x - (base + s_r)||^2 = ||x - base||^2 - 2<x - base, s_r>
         + ||s_r||^2, one dense pass over the base plus O(m) gathers."""
@@ -330,8 +377,9 @@ class DeltaCodec:
                 "val": ((depth, m), "float32"),
                 "writes": ((), "int32")}
 
-    def device_bytes(self, spec, depth: int) -> int:
-        return spec.n_padded * 4 + depth * self._m(spec) * 8 + 4
+    def device_bytes(self, spec, depth: int, model_shards: int = 1) -> int:
+        per_shard_np = -(-spec.n_padded // model_shards)
+        return per_shard_np * 4 + depth * self._m(spec) * 8 + 4
 
     def state_to_host(self, state: DeltaRingState) -> Dict[str, np.ndarray]:
         return {"codec": np.asarray(self.name),
@@ -364,8 +412,11 @@ def resolve_codec(fl) -> Any:
         f"unknown ring_codec {fl.ring_codec!r}; valid: {CODECS}")
 
 
-def _host(t: torch.Tensor, dtype) -> np.ndarray:
-    return np.asarray(t.detach().cpu().numpy(), dtype)
+def _host(t, dtype) -> np.ndarray:
+    """A tensor, or an array ``fetch_replicated`` already brought back."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t, dtype)
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -422,8 +473,23 @@ def _checked_host_dict(codec, spec, depth: int, host) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
+# what the most recently built store costs a rank (telemetry, not program
+# state): a sharded ring's is this rank's slice
+_LAST_BUILT: Dict[str, Any] = {"ring_codec": None,
+                               "ring_bytes_per_device": None}
+
+
+def ring_provenance() -> Dict[str, Any]:
+    """{ring_codec, ring_bytes_per_device} of the last store built."""
+    return dict(_LAST_BUILT)
+
+
+def _sharded(spec, shard_ring: bool) -> bool:
+    return shard_ring and getattr(spec, "model_shards", 1) > 1
+
+
 def build_ring(init_params: Any, fl, *, mesh: Optional[Any] = None,
-               rows: Optional[Any] = None):
+               shard_ring: bool = True, rows: Optional[Any] = None):
     """Build (or restore) the version store. Returns ``(spec, state)``.
 
     The state lives on the device of ``init_params`` (a nested dict of
@@ -431,22 +497,58 @@ def build_ring(init_params: Any, fl, *, mesh: Optional[Any] = None,
     NamedTuple otherwise. ``rows`` restores from the host form
     ``ring_state_to_host`` produced (by either package); mismatches raise
     codec-aware errors naming the codec and its expected layout.
+
+    With ``mesh`` (``spec`` is then a ``ShardedFlatSpec`` when its ``model``
+    axis has size m > 1) and ``shard_ring=True``, each rank keeps only its
+    slice of every row on the codec's ``pspecs``; ``shard_ring=False`` keeps
+    the whole rows on every rank. Every rank calls this with the same
+    params (and ``rows``). The delta codec on a mesh of more than one rank
+    raises (Slice E2).
     """
-    _no_mesh(mesh)
-    spec = make_flat_spec(init_params, fl.server_pass_block_n)
+    spec = make_flat_spec(init_params, fl.server_pass_block_n, mesh)
     depth = fl.max_staleness + 1
     codec = resolve_codec(fl)
+    if codec.name == "delta" and mesh_spans_processes(mesh):
+        raise NotImplementedError(
+            "the delta ring on a mesh is not ported: its top-m over a "
+            "model-sharded row needs a cross-shard top-k in lax.top_k's tie "
+            "order (ROADMAP.md, Slice E2)")
     if rows is None:
         state = codec.init_state(spec, flatten_tree(spec, init_params),
                                  depth)
     else:
         device = tree_leaves(init_params)[0].device
         state = codec.state_from_host(spec, depth, rows, device)
+    sharded = _sharded(spec, shard_ring)
+    if sharded:
+        # each rank copies its slice out of the whole rows, which then go
+        leaves = [local_slice(t, mesh, ps).contiguous().clone()
+                  for t, ps in zip(state_tensors(state), codec.pspecs(spec))]
+        state = leaves[0] if isinstance(state, torch.Tensor) else \
+            type(state)(*leaves)
+    _LAST_BUILT.update(
+        ring_codec=codec.name,
+        ring_bytes_per_device=codec.device_bytes(
+            spec, depth, spec.model_shards if sharded else 1))
     return spec, state
 
 
+def ring_shards(fl, spec, state, mesh: Optional[Any] = None,
+                shard_ring: bool = True) -> Any:
+    """The state as ``fetch_replicated`` reads it: a model-sharded ring's
+    tensors wrapped as ``LocalShard``s (gathered on fetch), any other ring
+    as it is."""
+    if not _sharded(spec, shard_ring):
+        return state
+    codec = resolve_codec(fl)
+    wrapped = [LocalShard(t, mesh, ps)
+               for t, ps in zip(state_tensors(state), codec.pspecs(spec))]
+    return wrapped[0] if isinstance(state, torch.Tensor) else \
+        type(state)(*wrapped)
+
+
 def ring_state_to_host(fl, state) -> Any:
-    """Device ring state -> checkpointable host arrays.
+    """Device ring state (or its fetched arrays) -> checkpointable host arrays.
 
     f32 keeps the bare (R, Np) f32 matrix; compressed codecs produce a
     dict of arrays stamped with the codec name (the JAX package's layout).
@@ -454,6 +556,8 @@ def ring_state_to_host(fl, state) -> Any:
     return resolve_codec(fl).state_to_host(state)
 
 
-def ring_device_bytes(fl, spec) -> int:
-    """Bytes the ring costs on the device under ``fl`` on ``spec``'s layout."""
-    return resolve_codec(fl).device_bytes(spec, fl.max_staleness + 1)
+def ring_device_bytes(fl, spec, model_shards: int = 1) -> int:
+    """Bytes the ring costs a rank under ``fl`` on ``spec``'s layout, with
+    each row split over ``model_shards`` ranks."""
+    return resolve_codec(fl).device_bytes(spec, fl.max_staleness + 1,
+                                          model_shards)

@@ -11,8 +11,8 @@ Three pieces every runner reports into:
 * ``obs.sink`` — JSONL event sink (gated on process 0) plus the
   stdlib-logging configurator.
 
-The port runs in one process until the distributed substrate (Slice E,
-ROADMAP.md) is ported, so the process-0 gates are always open.
+The process-0 gates follow ``sharding/collectives.is_coordinator``: rank 0 of
+a ``torch.distributed`` world, or the one process when none is up.
 ``tests/test_torch_obs.py`` pins every output to the JAX package's.
 """
 from repro_torch.obs.metrics import (  # noqa: F401

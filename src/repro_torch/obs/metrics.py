@@ -19,9 +19,8 @@ package's ``obs/metrics.py``. Three deliberate constraints shape it:
 
 * **Merging is a pure function over snapshots.** ``merge_snapshots``
   sums counter/histogram series and last-wins gauges, and
-  ``export_snapshot`` gates emission on process 0. The port runs in one
-  process until its distributed substrate (Slice E, ROADMAP.md), so the
-  gate is open.
+  ``export_snapshot`` gates emission on process 0
+  (``sharding/collectives.is_coordinator``).
 
 Histograms are fixed-bucket (prometheus-style cumulative ``le`` edges):
 ``observe`` is a bisect + two adds, and ``quantile`` reconstructs
@@ -229,9 +228,9 @@ def export_snapshot(registry: Optional[MetricsRegistry] = None,
                     gate=None) -> Optional[Dict[str, float]]:
     """Process-0-gated snapshot: the dict on process 0, None elsewhere.
 
-    ``gate`` defaults to ``obs.sink.is_process_zero`` (the port is one
-    process until Slice E, so it is always open); the injectable gate
-    keeps the multi-process behaviour unit-testable.
+    ``gate`` defaults to ``obs.sink.is_process_zero`` (rank 0, or True
+    when no process group is up); the injectable gate keeps the
+    multi-process behaviour unit-testable.
     """
     if gate is None:
         from repro_torch.obs.sink import is_process_zero as gate

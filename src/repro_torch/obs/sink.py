@@ -4,10 +4,10 @@ A copy of the JAX package's ``obs/sink.py``. ``JsonlSink`` is the durable
 export surface of the observability plane: one JSON object per line,
 append-only, so a job can diff snapshots across runs and a multi-process
 merge can concatenate per-process files. Writes are **gated on process 0
-by default** (``is_process_zero``) — every process may emit, one writes.
-The port runs in one process until its distributed substrate (Slice E,
-ROADMAP.md), so the gate is open. ``InMemorySink`` is the test double
-with identical semantics minus the filesystem.
+by default** (``is_process_zero``, which is
+``sharding/collectives.is_coordinator``: rank 0, or True when no process group
+is up) — every process may emit, one writes. ``InMemorySink`` is the test
+double with identical semantics minus the filesystem.
 
 ``configure_logging`` is the single place log format and level are
 decided: launchers expose ``--log-level`` and call it once; library
@@ -52,9 +52,10 @@ def configure_logging(level: str = "info",
 
 
 def is_process_zero() -> bool:
-    """The process-0 gate: always True, as the port runs in one process
-    until its distributed substrate (Slice E, ROADMAP.md)."""
-    return True
+    """The process-0 gate: ``sharding/collectives.is_coordinator``."""
+    from repro_torch.sharding.collectives import is_coordinator
+
+    return is_coordinator()
 
 
 class InMemorySink:

@@ -1,0 +1,185 @@
+"""The round's collectives and host <-> rank transfers on
+``torch.distributed`` (the data movement of the JAX package's
+``launch/multihost.py`` and of its partitioner, written out).
+
+One process per rank and one device per rank; tensors stay plain local
+tensors, and a rank holds its own contiguous slice of a sharded tensor
+(``local_slice``; ``sharding/specs.py`` says which). Every collective of
+the round goes through ``all_gather_cat``, so the round's reductions have
+an order the port fixes and no backend chooses: the eq. 3 partial
+distances meet over ``model`` in one all-gather and are summed in rank
+order on every rank (``sum_in_rank_order``), so the bits do not depend on
+the backend's allreduce. All other traffic of the round is exact data
+movement: the bases a data row trains from (over ``model``), deltas and
+probe losses (over ``data``), the new flat vector (over ``model``).
+
+Under gloo (the backend for ranks that share one card: NCCL refuses two
+ranks on one device) a CUDA tensor goes through host memory explicitly.
+
+IO is coordinator-gated: ``is_coordinator()`` (rank 0) guards checkpoint
+writes and log sinks (``checkpoint/ckpt.py``, ``obs/sink.py``). Nothing
+here starts a process group: ``launch/multihost.py`` does.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.sharding.specs import PartitionSpec, mesh_axis_size
+
+# host time spent in collectives (device waits included: staging a CUDA
+# tensor through the host synchronises its stream), read by shard_scale
+COLLECTIVE_STATS: Dict[str, float] = {"calls": 0, "seconds": 0.0, "bytes": 0}
+
+
+def reset_collective_stats() -> None:
+    """Set the collective counters to 0."""
+    COLLECTIVE_STATS.update(calls=0, seconds=0.0, bytes=0)
+
+
+def is_coordinator() -> bool:
+    """True on rank 0, or when no process group is up."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def mesh_spans_processes(mesh: Optional[Any]) -> bool:
+    """True when ``mesh`` has more than one rank (each rank is a process)."""
+    return mesh is not None and int(mesh.mesh.numel()) > 1
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device this rank's tensors live on under ``mesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+# ---------------------------------------------------------------------------
+# collectives (every one of the round's goes through these)
+# ---------------------------------------------------------------------------
+
+
+def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Gather ``t`` from every rank of ``group`` and join the pieces along
+    ``dim`` in rank order (one collective). Under gloo a CUDA tensor goes
+    to the host and the joined result comes back in one copy each way."""
+    t0 = time.perf_counter()
+    n = dist.get_world_size(group)
+    src = t.detach().contiguous()
+    stage = src.is_cuda and dist.get_backend(group) == "gloo"
+    if stage:
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    if stage:
+        out = out.to(t.device)
+    COLLECTIVE_STATS["calls"] += 1
+    COLLECTIVE_STATS["bytes"] += src.numel() * src.element_size() * n
+    COLLECTIVE_STATS["seconds"] += time.perf_counter() - t0
+    return out
+
+
+def sum_in_rank_order(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` over ``group``: one all-gather, then the pieces added left
+    to right in rank order on every rank, so every rank holds the same bits
+    whatever the backend."""
+    n = dist.get_world_size(group)
+    parts = all_gather_cat(t[None], group, dim=0)
+    acc = parts[0]
+    for i in range(1, n):
+        acc = acc + parts[i]
+    return acc
+
+
+def barrier() -> None:
+    """Wait for every rank (no-op without a process group)."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# host <-> rank transfers
+# ---------------------------------------------------------------------------
+
+
+class LocalShard(NamedTuple):
+    """This rank's slice of a tensor laid out on ``mesh`` by ``spec``: what a
+    JAX array's sharding says, carried beside a plain local tensor for the
+    readers that gather it (``fetch_replicated``, ``save_checkpoint``)."""
+
+    local: torch.Tensor
+    mesh: Any
+    spec: PartitionSpec
+
+
+def local_slice(value: torch.Tensor, mesh, spec: PartitionSpec) -> torch.Tensor:
+    """This rank's contiguous slice of ``value`` under ``spec`` (a view)."""
+    for dim, axis in enumerate(spec):
+        size = mesh_axis_size(mesh, axis) if axis else 1
+        if size <= 1:
+            continue
+        if value.shape[dim] % size:
+            raise ValueError(f"dim {dim} of {tuple(value.shape)} does not "
+                             f"divide over {axis!r} ({size} shards)")
+        chunk = value.shape[dim] // size
+        value = value.narrow(dim, mesh.get_local_rank(axis) * chunk, chunk)
+    return value
+
+
+def put_with_sharding(value: Any, mesh, spec: PartitionSpec) -> torch.Tensor:
+    """Copy this rank's slice of a host value onto this rank's device.
+
+    Every rank calls this with the same value (the engine's host walk is
+    seeded alike on every rank); no communication.
+    """
+    t = value if isinstance(value, torch.Tensor) else torch.as_tensor(
+        np.ascontiguousarray(value))
+    return local_slice(t, mesh, spec).to(mesh_device(mesh), copy=True
+                                         ).contiguous()
+
+
+def put_replicated(tree: Any, mesh) -> Any:
+    """Copy every leaf of a host tree whole onto this rank's device."""
+    return _walk(tree, lambda v: put_with_sharding(v, mesh, PartitionSpec()))
+
+
+def gather_shards(shard: LocalShard) -> torch.Tensor:
+    """The whole tensor from every rank's ``LocalShard``: one all-gather over
+    each sharded axis, joined in rank order. Every rank must call it."""
+    out = shard.local
+    for dim, axis in enumerate(shard.spec):
+        if axis and mesh_axis_size(shard.mesh, axis) > 1:
+            out = all_gather_cat(out, shard.mesh.get_group(axis), dim)
+    return out
+
+
+def fetch_replicated(tree: Any) -> Any:
+    """A tree of tensors -> host numpy, leaf by leaf. A plain tensor is a
+    replicated one and is read locally; a ``LocalShard`` is gathered first
+    (a collective: every rank must call this with the same tree)."""
+
+    def leaf(v):
+        if isinstance(v, LocalShard):
+            v = gather_shards(v)
+        if isinstance(v, torch.Tensor):
+            return v.detach().cpu().numpy()
+        return np.asarray(v)
+
+    return _walk(tree, leaf)
+
+
+def _walk(tree: Any, fn: Callable) -> Any:
+    if isinstance(tree, LocalShard):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _walk(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_walk(v, fn) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(v, fn) for v in tree)
+    return fn(tree)

@@ -1,4 +1,4 @@
-"""Vectorized buffered-async FL simulation engine on one device.
+"""Vectorized buffered-async FL simulation engine.
 
 The FedBuff structure makes every server round exactly one window of K
 uploads, and within a window no aggregation happens until the K-th
@@ -32,6 +32,16 @@ bases older than the ring resync to the current model with staleness 0.
 host RNG stream, round log, history) as an ``EngineState``; passed back as
 ``init_state`` it resumes the run bit-identically. ``engine_state_to_tree``
 gives the arrays ``checkpoint/ckpt.py`` writes, in the JAX engine's layout.
+
+On a (data, model) mesh (``launch/multihost.py``; every rank runs this
+function with the same arguments) each round runs through the sharded round
+body: K/d clients a data row, the server pass on each rank's model slice,
+the ring holding each rank's slice of every row (``shard_ring``). Every rank
+walks the same seeded event heap, so the window metadata needs no
+communication; each rank uploads the chunk inputs from its own copy; the
+round log is replicated and read locally, and ``final_state`` gathers the
+ring (``fetch_replicated``). With no mesh, or a 1 x 1 mesh, the program is
+the single-device one, bit for bit.
 """
 from __future__ import annotations
 
@@ -44,7 +54,12 @@ import torch
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.round_body import make_ring_round
-from repro_torch.core.version_store import build_ring, ring_state_to_host
+from repro_torch.core.version_store import (
+    build_ring,
+    ring_shards,
+    ring_state_to_host,
+)
+from repro_torch.sharding.collectives import fetch_replicated
 from repro_torch.obs.metrics import MetricsRegistry, default_registry
 from repro_torch.obs.trace import (
     NULL_TRACER,
@@ -73,6 +88,7 @@ _LOG_FIELDS = ("weights", "staleness", "stat_effect", "sq_dists")
 
 
 def init_version_ring(init_params: Any, fl: FLConfig, *,
+                      mesh: Optional[Any] = None, shard_ring: bool = True,
                       rows: Optional[Any] = None):
     """Build the device-resident version store (``core/version_store.py``)
     on the device of ``init_params``. Returns ``(spec, ring)``.
@@ -83,8 +99,14 @@ def init_version_ring(init_params: Any, fl: FLConfig, *,
     and ``delta``. ``rows`` restores from a checkpointed host form
     (``version_store.ring_state_to_host``, written by either package); a
     codec or layout mismatch raises naming the codec and its layout.
+
+    With a mesh whose ``model`` axis has size m > 1, ``shard_ring=True``
+    keeps this rank's slice of every row (``R * n_padded / m`` values for
+    f32); ``shard_ring=False`` keeps whole rows on every rank (the same
+    round, the bit-parity reference).
     """
-    return build_ring(init_params, fl, rows=rows)
+    return build_ring(init_params, fl, mesh=mesh, shard_ring=shard_ring,
+                      rows=rows)
 
 
 class EngineState(NamedTuple):
@@ -154,6 +176,30 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def _make_chunk_step(loss_fn: Callable, fl: FLConfig, device: torch.device,
+                     spec, mesh: Optional[Any] = None,
+                     shard_ring: bool = True) -> Callable:
+    """S whole server rounds (K local trainings + eq. 3/4/5 each) back to
+    back on the shared round body; the ring advances on the device between
+    rounds. Returns ``chunk_step(params, ring, base_slots, batches, probes,
+    sizes, taus, new_slots) -> (params, ring, infos (S, fields, K))``."""
+    ring_round = make_ring_round(loss_fn, fl, device, spec, mesh=mesh,
+                                 shard_ring=shard_ring)
+
+    def chunk_step(params, ring, base_slots, batches, probes, sizes, taus,
+                   new_slots):
+        infos = []
+        for j, new_slot in enumerate(new_slots):
+            params, ring, info = ring_round(
+                params, ring, base_slots[j],
+                tuple(b[j] for b in batches), tuple(p[j] for p in probes),
+                sizes[j], taus[j], new_slot)
+            infos.append(torch.stack([info[f] for f in _LOG_FIELDS]))
+        return params, ring, torch.stack(infos)
+
+    return chunk_step
+
+
 def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
                    fl: FLConfig, total_rounds: int,
                    eval_fn: Optional[Callable[[Any], Dict]] = None,
@@ -165,6 +211,8 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
                    trace: Optional[EventTrace] = None,
                    record_trace: bool = False,
                    rounds_per_launch: int = 8,
+                   mesh: Optional[Any] = None,
+                   shard_ring: bool = True,
                    init_state: Optional[EngineState] = None,
                    capture_state: bool = False,
                    registry: Optional[MetricsRegistry] = None,
@@ -192,8 +240,17 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
     loss/clients/config/seed) resumes the run bit-identically to the
     uninterrupted one. ``total_rounds`` always counts from round 0, so a
     resume runs ``total_rounds - init_state.version`` more rounds.
+
+    ``mesh`` (a ``DeviceMesh`` of ``launch/multihost.make_round_mesh`` on
+    ``device``'s type) runs every round through the sharded substrate, and
+    every rank calls this with the same arguments; ``shard_ring=False``
+    keeps whole ring rows on every rank. The dispatch count does not change
+    with the world. ``final_params`` are whole on every rank.
     """
     dev = resolve_device(device)
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"mesh of {mesh.device_type!r} ranks, device "
+                         f"{str(dev)!r}")
     n = len(clients)
     k = fl.buffer_size
     beh = resolve_behavior(n, seed, behavior, scenario, latency, trace)
@@ -205,20 +262,11 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
     syncs = reg.counter("engine_host_syncs_total")
     dispatches_start = dispatches.value
 
-    def chunk_step(params, ring, base_slots, batches, probes, sizes, taus,
-                   new_slots):
-        """S whole rounds (K local trainings + eq. 3/4/5 each); the ring
-        advances on the device between rounds."""
+    def chunk_step(*args):
+        """Every dispatch of the round program goes through here."""
         t0 = time.perf_counter()
         dispatches.inc()
-        infos = []
-        for j, new_slot in enumerate(new_slots):
-            params, ring, info = ring_round(
-                params, ring, base_slots[j],
-                tuple(b[j] for b in batches), tuple(p[j] for p in probes),
-                sizes[j], taus[j], new_slot)
-            infos.append(torch.stack([info[f] for f in _LOG_FIELDS]))
-        out = params, ring, torch.stack(infos)  # (S, fields, K)
+        out = raw_chunk_step(*args)
         launch_hist.observe(time.perf_counter() - t0)
         return out
 
@@ -227,7 +275,8 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
 
     if init_state is None:
         params = to_device(init_params)
-        spec, ring = init_version_ring(params, fl)
+        spec, ring = init_version_ring(params, fl, mesh=mesh,
+                                       shard_ring=shard_ring)
         version = 0
         base_version = np.zeros(n, np.int64)
         now = 0.0
@@ -253,7 +302,9 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
         for c, row in zip(clients, init_state.dataset_rng):
             c.set_rng_state(row)
         params = to_device(init_state.params)
-        spec, ring = init_version_ring(params, fl, rows=init_state.ring)
+        spec, ring = init_version_ring(params, fl, mesh=mesh,
+                                       shard_ring=shard_ring,
+                                       rows=init_state.ring)
         version = init_state.version
         base_version = np.asarray(init_state.base_version, np.int64).copy()
         now = init_state.now
@@ -267,7 +318,8 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
         num_events = init_state.num_events
         events = [(float(t), int(c)) for t, c in init_state.events]
         heapq.heapify(events)
-    ring_round = make_ring_round(loss_fn, fl, dev, spec)
+    raw_chunk_step = _make_chunk_step(loss_fn, fl, dev, spec, mesh,
+                                      shard_ring)
     pending: List[Dict] = []  # per-chunk host metadata + device info handles
     event_log: List = []
 
@@ -369,6 +421,7 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
     maybe_eval(force=True)
 
     # ---- single device->host fetch for the whole run's round log --------
+    # (the info is replicated on every rank of a mesh: a local read)
     round_log: List[Dict] = list(round_log_prefix)
     with tr.span(SPAN_HOST_SYNC, what="round_log", launches=len(pending)):
         syncs.inc()
@@ -395,8 +448,10 @@ def run_vectorized(loss_fn: Callable, init_params: Any, clients: Sequence,
                 version=version, now=now, num_events=num_events,
                 base_version=base_version.copy(),
                 events=tuple(sorted(events)),
-                params=tree_map(lambda t: t.detach().cpu().numpy(), params),
-                ring=ring_state_to_host(fl, ring), behavior=beh.get_state(),
+                params=fetch_replicated(params),
+                ring=ring_state_to_host(fl, fetch_replicated(ring_shards(
+                    fl, spec, ring, mesh, shard_ring))),
+                behavior=beh.get_state(),
                 dataset_rng=np.stack([c.rng_state() for c in clients]),
                 history=[dict(h) for h in history],
                 round_log=[dict(r) for r in round_log])

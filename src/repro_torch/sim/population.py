@@ -94,8 +94,9 @@ _TAG_PHASE = 404   # static: diurnal phase offset
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "the population engine on a mesh is not ported; it comes with "
-            "the distributed substrate (ROADMAP.md, Slice E)")
+            "the population engine on a mesh is not ported: its data-sharded "
+            "(N,) state needs a cross-shard top-k in lax.top_k's tie order "
+            "(ROADMAP.md, Slice E2)")
 
 
 def _stream_key(seed: int, tag: int, device: torch.device) -> threefry.Key:
@@ -946,7 +947,7 @@ def run_population(loss_fn: Callable, init_params: Any,
     bit-identically to the uninterrupted run.
     ``total_rounds`` counts from round 0, as in ``run_vectorized``.
     ``mesh``/``shard_ring`` are the JAX signature's: a mesh raises until the
-    distributed substrate is ported (Slice E).
+    population engine's mesh branch is ported (Slice E2).
     """
     if latency is not None:
         raise ValueError("run_population is scenario-driven; LatencyModel "

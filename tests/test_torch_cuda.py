@@ -839,3 +839,75 @@ def test_population_resume_on_card_bit_identical(cuda):
     for f in ("t_next", "k_next", "batch_k", "base_version"):
         np.testing.assert_array_equal(getattr(resumed.final_state, f),
                                       getattr(full.final_state, f))
+
+
+def _quad_clients(n=6, size=64, d=4, seed=0):
+    from repro_torch.data.synthetic import ClientDataset
+
+    rng = np.random.default_rng(seed)
+    w_true = np.arange(1.0, d + 1.0)
+    out = []
+    for i in range(n):
+        x = rng.normal(size=(size, d)).astype(np.float32)
+        y = (x @ w_true + 0.05 * rng.normal(size=size)).astype(np.float32)
+        out.append(ClientDataset(x=x, y=y, seed=seed + 10 + i))
+    return out
+
+
+def _quad_loss(params, batch):
+    x, y = batch
+    return torch.mean((x @ params["w"] - y) ** 2), {}
+
+
+SUBSTRATE_RUNS = (("f32", "batched"), ("f32", "fused"), ("int8", "fused"))
+
+
+def rank_substrate_on_card(rounds):
+    """One rank of a (1, 2) world on the card (``spawn_world`` target)."""
+    from repro_torch.launch import multihost
+    from repro_torch.sim.engine import run_vectorized
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = multihost.make_round_mesh(1, 2, device="cuda")
+    out = {}
+    for codec, mode in SUBSTRATE_RUNS:
+        fl = FLConfig(num_clients=6, buffer_size=2, local_steps=2,
+                      local_lr=0.05, batch_size=8, max_staleness=4,
+                      server_pass_mode=mode, ring_codec=codec)
+        ops.reset_launches()
+        rc_ops.reset_launches()
+        res = run_vectorized(_quad_loss, {"w": np.zeros(4, np.float32)},
+                             _quad_clients(), fl, rounds, seed=0, mesh=mesh,
+                             device="cuda")
+        out[codec, mode] = {
+            "round_log": res.round_log,
+            "w": res.final_params["w"].cpu().numpy(),
+            "launches": (ops.server_update.launches, ops.sq_dists.launches,
+                         ops.weighted_sum.launches,
+                         rc_ops.int8_sq_dists.launches)}
+    return out
+
+
+@pytest.mark.cuda
+def test_substrate_world_on_card(cuda, tmp_path):
+    """A (1, 2) world of two ranks sharing the card (gloo): K2 + K3 on each
+    rank's slice in both f32 kernel modes (K1 needs global distances), K4 +
+    K3 on the int8 ring; every rank's round log and params bit-identical."""
+    from pathlib import Path
+
+    from repro_torch.launch.multihost import spawn_world
+
+    rounds = 4
+    ranks = spawn_world(f"{Path(__file__).resolve()}:rank_substrate_on_card",
+                        2, {"rounds": rounds}, timeout=300,
+                        workdir=str(tmp_path))
+    want = {("f32", "batched"): (0, rounds, rounds, 0),
+            ("f32", "fused"): (0, rounds, rounds, 0),
+            ("int8", "fused"): (0, 0, rounds, rounds)}
+    for key, launches in want.items():
+        a, b = ranks[0][key], ranks[1][key]
+        assert a["launches"] == b["launches"] == launches, key
+        assert a["round_log"] == b["round_log"], key
+        assert a["w"].tobytes() == b["w"].tobytes(), key
+        assert np.isfinite(a["w"]).all()

@@ -5,11 +5,13 @@ The port imports neither ``jax`` nor anything of the JAX package ``repro``
 caller asks for the CPU: with no card they raise rather than fall back.
 """
 import ast
+import dataclasses
 import importlib
 import re
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -25,7 +27,7 @@ from repro_torch.core import (
     run_sync,
 )
 from repro_torch.core.version_store import build_ring
-from repro_torch.launch import population_scale, serve, serve_fl
+from repro_torch.launch import population_scale, serve, serve_fl, shard_scale
 from repro_torch.models import (
     Model,
     init_lenet,
@@ -81,7 +83,11 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.launch.cli, repro_torch.launch.serve_fl, "
             "repro_torch.launch.client_fl, repro_torch.launch.replay_probe, "
             "repro_torch.utils.threefry, repro_torch.sim.population, "
-            "repro_torch.launch.population_scale; "
+            "repro_torch.launch.population_scale, repro_torch.sharding, "
+            "repro_torch.sharding.specs, repro_torch.sharding.collectives, "
+            "repro_torch.launch.mesh, "
+            "repro_torch.launch.multihost, repro_torch.launch.shard_scale, "
+            "repro_torch.checkpoint; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code],
@@ -136,19 +142,42 @@ def test_slice_c_entry_points_default_to_cuda_and_raise(no_cuda):
                              device="cpu").device == torch.device("cpu")
 
 
+def _stub_mesh(data=2, model=2):
+    """What the port reads of a DeviceMesh before any collective."""
+    return SimpleNamespace(mesh_dim_names=("data", "model"),
+                           mesh=torch.empty((data, model)), device_type="cpu")
+
+
 def test_unported_engines_name_their_slice():
     params, clients, fl = _setup()
-    with pytest.raises(NotImplementedError, match="Slice E"):
+    with pytest.raises(NotImplementedError, match="Slice E2"):
         run_population(lenet_loss, params, clients, fl, 1, mesh=object(),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice E"):
+    with pytest.raises(NotImplementedError, match="Slice E2"):
         collect_windows(get_scenario("paper-fig1"), 4, fl, 1, mesh=object(),
                         device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         run_async(lenet_loss, params, clients, fl, 1, engine="nope",
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice E"):
-        build_ring(params, fl, mesh=object())
+    with pytest.raises(NotImplementedError, match="Slice E2"):
+        build_ring(params, dataclasses.replace(fl, ring_codec="delta"),
+                   mesh=_stub_mesh())
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 2), (2, 1)])
+def test_slice_e2_paths_raise_on_a_mesh(shape):
+    """The delta ring and the population engine on a mesh wait for Slice E2
+    (a cross-shard top-k); they raise before any collective."""
+    params, clients, fl = _setup()
+    mesh = _stub_mesh(*shape)
+    delta = dataclasses.replace(fl, ring_codec="delta")
+    with pytest.raises(NotImplementedError, match="Slice E2"):
+        run_async(lenet_loss, params, clients, delta, 1, mesh=mesh,
+                  device="cpu")
+    with pytest.raises(NotImplementedError, match="Slice E2"):
+        run_async(lenet_loss, params, clients, fl, 1, engine="population",
+                  scenario=get_scenario("paper-fig1"), mesh=mesh,
+                  device="cpu")
 
 
 def test_population_entry_points_default_to_cuda_and_raise(no_cuda):
@@ -166,6 +195,8 @@ def test_population_entry_points_default_to_cuda_and_raise(no_cuda):
         CounterBehavior(sc, 4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         population_scale.main(["--sizes", "100", "--windows", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        shard_scale.main([])
     res = run_async(lenet_loss, params, clients, fl, 1, engine="population",
                     scenario=sc, device="cpu")
     assert res.server_rounds == 1
