@@ -1710,6 +1710,8 @@ def slice_d_phase(torch, np, kernel_ops, dataset, init, device: str):
           f"flags) at round {POP_RESUME_AT} to {rounds}: round log, params "
           f"and PopState bit-identical")
     out["launches"] = population_launches
+    # Slice E2's single-rank references (run_population sets its own flags)
+    out["ref_1e6"], out["ref_30_batched"] = full, runs["batched", "f32"]
     return out
 
 
@@ -1731,6 +1733,14 @@ E_TOL = {"weights": 1e-5, "sq_dists": 1e-3, "history": 1e-5,
          "params": PARAM_ATOL}
 E_WORLD_TIMEOUT = 300.0
 E_KERNELS = ("fused_server", "sq_dists", "weighted_sum", "int8_sq_dists")
+# Slice E2 in the same worlds: the delta ring at (1, 2), batched, 34 rounds
+# (the base refresh runs at write 33); the population engine at (2, 1) over
+# N = 1e6 clients (fused: K1) and at (2, 2) over the paper's 30 (batched:
+# K2 + K3 on each rank's model slice). The delta ring's m = round(0.05 *
+# n_padded) depends on the padding, so its single-rank reference takes
+# server_pass_block_n = 2 x the default tile: both pad LeNet to 65,536.
+E2_POP_WINDOWS = 10
+PAPER_FL_DEPTH = 33  # the paper config's ring, max_staleness + 1
 
 
 def slice_e_rank(shape, device: str, work: str):
@@ -1756,6 +1766,12 @@ def slice_e_rank(shape, device: str, work: str):
         engine_state_to_tree,
         init_version_ring,
         run_vectorized,
+    )
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.sim.population import (
+        DevicePool,
+        collect_windows,
+        run_population,
     )
 
     data, model = shape
@@ -1812,6 +1828,37 @@ def slice_e_rank(shape, device: str, work: str):
                 "collective_bytes_per_round": stats["bytes"] / done,
                 "state": res.final_state}
 
+    def pop(mode, data, total=E_ROUNDS, **kw):
+        """run_population on the mesh, recorded as ``run`` records."""
+        fl = dc.replace(PAPER_FL, server_pass_mode=mode)
+        reg = MetricsRegistry()
+        ops.reset_launches()
+        rc_ops.reset_launches()
+        multihost.reset_collective_stats()
+        multihost.barrier()
+        t0 = time.perf_counter()
+        res = run_population(lenet_loss, init, data, fl, total, scenario=sc,
+                             seed=0, mesh=mesh, device=device, registry=reg,
+                             **kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        stats = dict(multihost.COLLECTIVE_STATS)
+        snap = reg.snapshot()
+        st = res.final_state
+        return {"round_log": res.round_log, "history": res.history,
+                "params": multihost.fetch_replicated(res.final_params),
+                "launches": counts(), "rounds_per_s": total / dt,
+                "collective_ms_per_round": stats["seconds"] / total * 1e3,
+                "collectives_per_round": stats["calls"] / total,
+                "collective_bytes_per_round": stats["bytes"] / total,
+                "exact_windows": snap.get("engine_exact_windows_total", 0.0),
+                "host_reads_per_round":
+                    snap["engine_host_syncs_total"] / total,
+                "num_events": res.num_events, "sim_time": res.sim_time,
+                "pop_state_sha256": None if st is None else pop_digest(st),
+                "state": None}
+
     def ring_bytes(codec):
         fl = dc.replace(PAPER_FL, ring_codec=codec)
         spec, state = init_version_ring(init, fl, mesh=mesh)
@@ -1832,7 +1879,9 @@ def slice_e_rank(shape, device: str, work: str):
         runs["fused"] = run("fused")
         runs["fused_replicated_ring"] = run("fused", shard_ring=False)
         runs["int8_fused"] = run("fused", "int8")
-        out["ring_bytes"] = {c: ring_bytes(c) for c in ("f32", "int8")}
+        runs["delta_batched"] = run("batched", "delta", total=DELTA_ROUNDS)
+        out["ring_bytes"] = {c: ring_bytes(c)
+                             for c in ("f32", "int8", "delta")}
     elif shape == (2, 2):
         runs["fused"] = run("fused", capture_state=True)
         half = run("fused", total=5, capture_state=True)
@@ -1874,11 +1923,34 @@ def slice_e_rank(shape, device: str, work: str):
         sink = JsonlSink(str(Path(work) / f"sink_rank{rank}.jsonl"))
         sink.emit({"event": "slice_e", "rank": rank})
         sink.close()
+        runs["population_batched"] = pop("batched", clients)
     else:
         runs["fused"] = run("fused")
+        # the population engine at N = 1e6: the (N,) state split over data
+        xs = np.concatenate([c.x for c in clients])
+        ys = np.concatenate([c.y for c in clients])
+        pool = DevicePool.shared(xs, ys, POP_BIG_N, POP_PER_CLIENT).to(dev)
+        t0 = time.perf_counter()
+        wins = collect_windows(sc, POP_BIG_N, PAPER_FL, E2_POP_WINDOWS,
+                               seed=0, mesh=mesh, device=device,
+                               registry=MetricsRegistry())
+        out["windows_1e6"] = {f: wins[f] for f in (
+            "clients", "tau", "slots", "t", "num_events", "now", "agreed")}
+        out["windows_1e6_s"] = time.perf_counter() - t0
+        runs["population_fused_1e6"] = pop("fused", pool, capture_state=True)
     for r in runs.values():
         r.pop("state")
     return out
+
+
+def pop_digest(state) -> str:
+    """SHA-256 of a ``PopulationEngineState``'s four (N,) arrays."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in ("t_next", "k_next", "batch_k", "base_version"):
+        h.update(getattr(state, f).tobytes())
+    return h.hexdigest()
 
 
 def _probe_gloo_cuda(torch, dist, device):
@@ -1930,10 +2002,12 @@ def e_check_close(np, got, ref, what: str) -> None:
             err = float(np.max(np.abs(np.asarray(a[f], np.float64)
                                       - np.asarray(b[f], np.float64))))
             worst[f] = max(worst[f], err)
-    hist = max(abs(a["wnorm"] - b["wnorm"]) / max(1.0, abs(b["wnorm"]))
-               for a, b in zip(got["history"], ref.history))
-    acc = max(abs(a["acc"] - b["acc"]) for a, b in zip(got["history"],
-                                                        ref.history))
+    check(len(got["history"]) == len(ref.history), f"{what}: evals")
+    hist = max((abs(a["wnorm"] - b["wnorm"]) / max(1.0, abs(b["wnorm"]))
+                for a, b in zip(got["history"], ref.history)), default=0.0)
+    acc = max((abs(a["acc"] - b["acc"]) for a, b in zip(got["history"],
+                                                         ref.history)),
+              default=0.0)
     params = _max_param_err(np, got["params"], {
         l: {k: v.cpu().numpy() for k, v in p.items()}
         for l, p in ref.final_params.items()})
@@ -1948,9 +2022,12 @@ def e_check_close(np, got, ref, what: str) -> None:
           and params <= E_TOL["params"], f"{what}: outside the tolerances")
 
 
-def slice_e_phase(torch, np, singles, card: str):
+def slice_e_phase(torch, np, singles, card: str, e2_refs):
     """The Slice E worlds on the card (and one on the CPU); ``singles`` are
-    single-rank card runs at the ranks' flags (fused, batched, int8)."""
+    single-rank card runs at the ranks' flags (fused, batched, int8);
+    ``e2_refs`` the single-rank references of the Slice E2 parts (the delta
+    run at the mesh's n_padded, the N = 1e6 windows and population run, the
+    30-client batched population run)."""
     from concurrent.futures import ThreadPoolExecutor as Pool
 
     from repro_torch.launch.multihost import spawn_world
@@ -2016,7 +2093,11 @@ def slice_e_phase(torch, np, singles, card: str):
             ("1x2", "int8_fused"):
                 {**none, "int8_sq_dists": ten, "weighted_sum": ten},
             ("2x2", "fused"): {**none, "sq_dists": ten, "weighted_sum": ten},
-            ("2x1", "fused"): {**none, "fused_server": ten}}
+            ("2x1", "fused"): {**none, "fused_server": ten},
+            ("1x2", "delta_batched"): {**none, "weighted_sum": DELTA_ROUNDS},
+            ("2x1", "population_fused_1e6"): {**none, "fused_server": ten},
+            ("2x2", "population_batched"):
+                {**none, "sq_dists": ten, "weighted_sum": ten}}
     for (name, run_name), counts in want.items():
         got = out["launches"][f"{name} {run_name}"]
         check(got == counts, f"{name} {run_name}: launches {got}, "
@@ -2074,7 +2155,71 @@ def slice_e_phase(torch, np, singles, card: str):
     sinks = sorted(p.name for p in work22.glob("sink_rank*.jsonl"))
     check(sinks == ["sink_rank0.jsonl"], f"2x2 sink files {sinks}")
     print(f"  2x2: only rank 0 wrote its sink file ({sinks}) ({card})")
+    slice_e2_checks(np, w12, w21, w22, e2_refs, out, card)
     return out
+
+
+def slice_e2_checks(np, w12, w21, w22, refs, out, card: str) -> None:
+    """The Slice E2 parts of the worlds against their single-rank runs."""
+    t = time.perf_counter()
+    print("Slice E2: the delta ring and the population engine on a mesh")
+    delta = w12[0]["runs"]["delta_batched"]
+    e_check_close(np, delta, refs["delta"],
+                  f"1x2 delta batched ({DELTA_ROUNDS} rounds, n_padded "
+                  f"{refs['delta_n_padded']:,}) vs single-rank delta at "
+                  f"server_pass_block_n {refs['delta_block_n']:,} (n_padded "
+                  f"{refs['delta_n_padded']:,})")
+    ref_params = {l: {k: v.cpu().numpy() for k, v in p.items()}
+                  for l, p in refs["delta"].final_params.items()}
+    same = (delta["round_log"] == refs["delta"].round_log
+            and _same_tree(np, delta["params"], ref_params))
+    print(f"  1x2 delta: round log and final params "
+          f"{'bit-identical to' if same else 'differ from'} the single "
+          f"rank's (every step of the sharded delta ring is the single "
+          f"device's)")
+    m = round(0.05 * refs["delta_n_padded"])
+    quote = refs["delta_n_padded"] // 2 * 4 + PAPER_FL_DEPTH * m * 8 + 4
+    for r in w12:
+        got, quoted = r["ring_bytes"]["delta"]
+        check(got == quoted == quote, f"1x2 rank {r['rank']} delta ring "
+              f"bytes {got}, ring_device_bytes {quoted}, expected {quote}")
+    print(f"  1x2 delta ring: {quote:,} B a rank (the base's half, {m:,} "
+          f"sparse entries a row x {PAPER_FL_DEPTH}) == ring_device_bytes; "
+          f"K3 launches a rank {delta['launches']['weighted_sum']} in "
+          f"{DELTA_ROUNDS} rounds, K1 = K2 = K4 = 0")
+    wins, ref_w = w21[0]["windows_1e6"], refs["windows_1e6"]
+    check(all(np.array_equal(wins[f], ref_w[f])
+              for f in ("clients", "tau", "slots", "t"))
+          and wins["num_events"] == ref_w["num_events"]
+          and all(r["windows_1e6"]["agreed"] == wins["agreed"]
+                  for r in w21),
+          "2x1 N = 1e6: windows differ from the single rank's")
+    print(f"  2x1 N = {POP_BIG_N:,}: {E2_POP_WINDOWS} windows (cids, taus, "
+          f"slots, t, {wins['num_events']} events) == the single rank's; "
+          f"host reads agreed {wins['agreed']}; "
+          f"{w21[0]['windows_1e6_s']:.2f} s")
+    for name, key, ranks, ref in (
+            ("2x1", "population_fused_1e6", w21, refs["pop_1e6"]),
+            ("2x2", "population_batched", w22, refs["pop_30"])):
+        rec = ranks[0]["runs"][key]
+        name = f"{name} {key}"
+        e_check_close(np, rec, ref, f"{name} vs single-rank")
+        check(rec["num_events"] == ref.num_events
+              and rec["sim_time"] == ref.sim_time,
+              f"{name}: events or sim time differ from the single rank's")
+        if rec["pop_state_sha256"] is not None:
+            check(rec["pop_state_sha256"] == pop_digest(ref.final_state),
+                  f"{name}: PopState differs from the single rank's")
+        print(f"  {name}: {rec['rounds_per_s']:.2f} rounds/s, "
+              f"{rec['collectives_per_round']:g} collectives a round, "
+              f"{rec['collective_ms_per_round']:.3f} host ms in them a round, "
+              f"{rec['exact_windows']:g} exact windows, "
+              f"{rec['host_reads_per_round']:.2f} host reads a round, "
+              f"{rec['num_events']} events == the single rank's"
+              + (", PopState bit-identical" if rec["pop_state_sha256"]
+                 else ""))
+    out["e2_s"] = time.perf_counter() - t
+    print(f"  Slice E2 checks ({card}): {out['e2_s']:.1f} s")
 
 
 def main() -> int:
@@ -2099,7 +2244,7 @@ def main() -> int:
     from repro_torch.configs.base import FLConfig
     from repro_torch.core import run_async, run_sync
     from repro_torch.core import version_store
-    from repro_torch.core.server_pass import flatten_tree
+    from repro_torch.core.server_pass import flatten_tree, make_flat_spec
     from repro_torch.kernels.flash_attn import kernel as fa_kernel
     from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.kernels.flash_attn import ref as fa_ref
@@ -2119,6 +2264,7 @@ def main() -> int:
         engine_state_to_tree,
         init_version_ring,
     )
+    from repro_torch.sim.population import collect_windows
 
     # 1. device line
     line = card = device_line()
@@ -2187,10 +2333,11 @@ def main() -> int:
                                for d in p.values() for v in d.values()))}
 
     def run(mode, device, codec="f32", total=rounds, engine="vectorized",
-            **kw):
+            block_n=0, **kw):
         clients, _ = dataset()  # fresh per run: batch streams are stateful
         fl = dataclasses.replace(PAPER_FL, server_pass_mode=mode,
-                                 ring_codec=codec)
+                                 ring_codec=codec,
+                                 server_pass_block_n=block_n)
         ops.reset_launches()
         rc_ops.reset_launches()
         t = time.perf_counter()
@@ -2460,8 +2607,21 @@ def main() -> int:
     torch.backends.cudnn.deterministic = True
     singles = (run("fused", "cuda")[0], run("batched", "cuda")[0],
                run("auto", "cuda", "int8")[0])
+    # Slice E2's: the delta ring at the (1, 2) mesh's n_padded (twice the
+    # default tile), and the windows at N = 1e6
+    block = make_flat_spec(params_cuda).block_n
+    e2_refs = {"delta": run("batched", "cuda", "delta", total=DELTA_ROUNDS,
+                            block_n=2 * block)[0],
+               "delta_block_n": 2 * block,
+               "delta_n_padded": make_flat_spec(params_cuda,
+                                                2 * block).n_padded,
+               "windows_1e6": collect_windows(
+                   sc, POP_BIG_N, PAPER_FL, E2_POP_WINDOWS, seed=0,
+                   device="cuda", registry=MetricsRegistry()),
+               "pop_1e6": slice_d["ref_1e6"],
+               "pop_30": slice_d["ref_30_batched"]}
     torch.backends.cudnn.deterministic = False
-    slice_e = slice_e_phase(torch, np, singles, card)
+    slice_e = slice_e_phase(torch, np, singles, card, e2_refs)
     print(f"  Slice E numbers ({card}): rounds/s "
           + ", ".join(f"{k} {v:.2f}" for k, v in slice_e["rates"].items()))
     print(f"  phase: {time.perf_counter() - t:.1f} s")

@@ -34,8 +34,8 @@ def run_async(loss_fn: Callable, init_params: Any, clients: Sequence,
     ``scenario=``, ``behavior=``, ``trace=`` and ``record_trace=``; the
     population engine takes ``scenario=`` only. The vectorized and
     population engines also take ``rounds_per_launch=``, ``registry=``,
-    ``tracer=`` and the checkpoint arguments; the vectorized engine takes
-    ``mesh=`` and ``shard_ring=`` (``sim/engine.py``), which pass through.
+    ``tracer=``, the checkpoint arguments, ``mesh=`` and ``shard_ring=``
+    (``sim/engine.py``, ``sim/population.py``), which pass through.
     """
     if engine == "vectorized":
         from repro_torch.sim.engine import run_vectorized as runner

@@ -42,10 +42,14 @@ Model sharding: with a mesh whose ``model`` axis has size m > 1,
 slice of every row, on the codec's ``pspecs`` (f32 and int8 rows
 ``P(None, "model")``: ``R * n_padded / m`` values a rank), and
 ``Int8Codec.distance_sq(..., mesh=)`` runs K4 on the rank's codes, scale
-and zero, the partials summed in rank order over ``model``.
-``shard_ring=False`` replicates the rows on the same mesh (the bit-parity
-reference). The delta codec on a mesh is not ported: its top-m over a
-model-sharded row needs a cross-shard top-k (Slice E2, ROADMAP.md).
+and zero, the partials summed in rank order over ``model``. The delta
+codec keeps the rank's slice of its base (``P("model")``) and the sparse
+rows replicated (``P()``, global indices); a write takes the row's top-m
+across the ranks (``sharding/collectives.py::top_k_across``, one
+all-gather, ``lax.top_k``'s tie order), a base refresh re-encodes all R
+rows with one gather, and eq. 3 joins ``x - base`` over ``model``, so the
+sharded delta ring is the single device's bit for bit. ``shard_ring=False``
+replicates the rows on the same mesh (the bit-parity reference).
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.server_pass import (
     flatten_tree,
@@ -66,12 +71,14 @@ from repro_torch.kernels.ring_codec import ref as _cref
 from repro_torch.sharding.collectives import (
     LocalShard,
     local_slice,
-    mesh_spans_processes,
+    all_gather_cat,
     sum_in_rank_order,
+    top_k_across,
 )
 from repro_torch.sharding.specs import (
     MODEL_AXIS,
     PartitionSpec,
+    flat_param_pspec,
     ring_codes_pspec,
     ring_pspec,
     ring_scales_pspec,
@@ -127,6 +134,16 @@ def state_tensors(state) -> Tuple[torch.Tensor, ...]:
     if isinstance(state, torch.Tensor):
         return (state,)
     return tuple(t for t in state if isinstance(t, torch.Tensor))
+
+
+def _map_tensors(state, leaves: List[Any]):
+    """``state`` with its tensors (``state_tensors``' order) replaced by
+    ``leaves``; host fields (the delta ring's ``host_writes``) kept."""
+    if isinstance(state, torch.Tensor):
+        return leaves[0]
+    it = iter(leaves)
+    return type(state)(*(next(it) if isinstance(t, torch.Tensor) else t
+                         for t in state))
 
 
 # ---------------------------------------------------------------------------
@@ -291,7 +308,17 @@ class Int8Codec:
 
 @dataclasses.dataclass(frozen=True)
 class DeltaCodec:
-    """Sparse residual vs a periodically refreshed f32 base snapshot."""
+    """Sparse residual vs a periodically refreshed f32 base snapshot.
+
+    Under a model-sharded ring (``build_ring(..., mesh=, shard_ring=True)``)
+    ``base`` is this rank's slice of the flat layout and ``idx``/``val``
+    stay replicated, indexing the GLOBAL flat vector: a row's top-m runs
+    over every rank's slice with ``top_k_across`` (one all-gather a write),
+    ``decode`` returns the rank's columns, and ``distance_sq`` joins ``x -
+    base`` over ``model`` (one all-gather). Every step equals the single
+    device's bit for bit, so a sharded ring, a replicated one
+    (``shard_ring=False``) and one device at the same ``n_padded`` agree.
+    """
 
     density: float = 0.05
     base_refresh: int = 0  # 0 -> ring depth (one full lap)
@@ -315,41 +342,86 @@ class DeltaCodec:
             writes=torch.zeros((), dtype=torch.int32, device=dev),
             host_writes=0)
 
+    @staticmethod
+    def _local(spec, state: DeltaRingState):
+        """``(lo, hi, group)``: the columns ``state.base`` holds and the
+        ``model`` group a row's top-m spans; the group is None when the base
+        is whole (no mesh, a data-only mesh, ``shard_ring=False``)."""
+        if state.base.shape[0] == spec.n_padded:
+            return 0, spec.n_padded, None
+        lo, hi = shard_bounds(spec)
+        return lo, hi, spec.mesh.get_group(MODEL_AXIS)
+
+    @staticmethod
+    def _in_slice(idx: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+        """Global indices -> positions in a slice of ``hi - lo`` columns plus
+        one spare column, where every index outside ``[lo, hi)`` goes (a
+        scatter then drops the spare column: no host read, exact)."""
+        idx = idx.long()
+        inside = (idx >= lo) & (idx < hi)
+        return torch.where(inside, idx - lo, hi - lo)
+
     def decode(self, spec, state: DeltaRingState, slots) -> torch.Tensor:
-        idx = state.idx.index_select(0, slots).long()
+        """(K, hi - lo) rows: the base plus the scatter of each row's
+        residual entries that fall in the base's columns."""
+        lo, hi, _ = self._local(spec, state)
+        pos = self._in_slice(state.idx.index_select(0, slots), lo, hi)
         val = state.val.index_select(0, slots)
         # scatter_add_ uses atomics on CUDA; a row's indices are distinct
         # except in all-zero rows (init, refreshed slot), where every value
         # added is 0, so the sum stays exact in any order
-        sp = torch.zeros((idx.shape[0], spec.n_padded), dtype=torch.float32,
-                         device=val.device).scatter_add_(1, idx, val)
-        return state.base[None] + sp
+        sp = torch.zeros((pos.shape[0], hi - lo + 1), dtype=torch.float32,
+                         device=val.device).scatter_add_(1, pos, val)
+        return state.base[None] + sp[:, :hi - lo]
 
-    def _top_m(self, dense: torch.Tensor, m: int):
-        """Top-m |dense| entries, ties to the lower index (``lax.top_k``'s
-        order): a stable descending sort keeps equal magnitudes in index
-        order, where ``torch.topk`` promises no order on ties."""
-        idx = torch.sort(torch.abs(dense), descending=True,
-                         stable=True).indices[:m]
-        return idx.to(torch.int32), dense[idx]
+    def _top_m(self, dense: torch.Tensor, m: int, lo: int, group):
+        """Top-m |dense| entries of each row (the last axis), ties to the
+        lower global index (``lax.top_k``'s order): a stable descending sort
+        keeps equal magnitudes in index order, where ``torch.topk`` promises
+        no order on ties. ``dense`` holds the columns from ``lo``; with a
+        ``group`` the rows span its ranks (one all-gather for the batch)."""
+        if group is None:
+            idx = torch.sort(torch.abs(dense), dim=-1, descending=True,
+                             stable=True).indices[..., :m]
+            return idx.to(torch.int32), dense.gather(-1, idx)
+        cols = torch.arange(lo, lo + dense.shape[-1], dtype=torch.int32,
+                            device=dense.device)
+        _, idx, (val,) = top_k_across(torch.abs(dense), cols, m, group,
+                                      payload=(dense,))
+        return idx, val
 
     def encode(self, spec, state: DeltaRingState, slot, row):
+        """Write ``row`` (the base's columns of the new version) at ``slot``."""
         m = self._m(spec)
+        lo, hi, group = self._local(spec, state)
         every = self._refresh_every(state.idx.shape[0])
         if (state.host_writes + 1) % every:
-            idx, val = self._top_m(row - state.base, m)
+            idx, val = self._top_m(row - state.base, m, lo, group)
             state.idx[slot] = idx
             state.val[slot] = val
         else:
             # refresh: the new base is the incoming row and every retained
             # row re-encodes against it. Row r's dense residual vs the new
             # base is (base_old - base_new) + scatter(idx_r, val_r), rebuilt
-            # one row at a time so the (R, Np) dense ring never exists
-            base_diff = state.base - row
+            # one row at a time so the (R, Np) dense ring never exists; a
+            # rank keeps each row's local candidates, and one gather merges
+            # all R rows
+            base_diff = F.pad(state.base - row, (0, 1))
+            picks = []
             for r in range(state.idx.shape[0]):
-                dense = base_diff.index_add(0, state.idx[r].long(),
-                                            state.val[r])
-                state.idx[r], state.val[r] = self._top_m(dense, m)
+                dense = base_diff.index_add(
+                    0, self._in_slice(state.idx[r], lo, hi),
+                    state.val[r])[:hi - lo]
+                order = torch.sort(torch.abs(dense), descending=True,
+                                   stable=True).indices[:m]
+                picks.append((order, dense[order]))
+            idx = torch.stack([i for i, _ in picks]).to(torch.int32) + lo
+            val = torch.stack([v for _, v in picks])
+            if group is not None:
+                _, idx, (val,) = top_k_across(torch.abs(val), idx, m, group,
+                                              payload=(val,))
+            state.idx.copy_(idx)
+            state.val.copy_(val)
             # the slot being written IS the new base: residual exactly 0
             state.idx[slot] = 0
             state.val[slot] = 0.0
@@ -361,14 +433,32 @@ class DeltaCodec:
                     use_kernel=False, mesh=None):
         """Exact eq. 3 distances without densifying the rows:
         ||x - (base + s_r)||^2 = ||x - base||^2 - 2<x - base, s_r>
-        + ||s_r||^2, one dense pass over the base plus O(m) gathers."""
-        xb = x - state.base
+        + ||s_r||^2, one dense pass over the base plus O(m) gathers.
+
+        ``x`` is the whole flat vector. Under a model-sharded ring each rank
+        holds ``x - base`` on its columns; one all-gather over ``model``
+        joins the whole vector, and every rank evaluates the formula as one
+        device does, bit for bit. Rank partials would not do: the formula
+        subtracts terms far larger than its result, and the top-m selection
+        of the next write turns the last bits of a distance into different
+        ring entries, so a run on partials drifts from the single device's
+        (measured on the card: ``PERF.md`` §6)."""
+        xb = x - state.base if state.base.shape[0] == spec.n_padded else \
+            all_gather_cat(x[slice(*shard_bounds(spec))] - state.base,
+                           spec.mesh.get_group(MODEL_AXIS))
         idx = state.idx.index_select(0, slots).long()
         val = state.val.index_select(0, slots)
         d = (torch.sum(xb * xb)
              - 2.0 * torch.sum(xb[idx] * val, dim=1)
              + torch.sum(val * val, dim=1))
         return torch.clamp(d, min=0.0)
+
+    def pspecs(self, spec) -> List[PartitionSpec]:
+        # base rides the flat-param layout; the sparse (idx, val) pairs
+        # index the GLOBAL flat vector, so they stay replicated (m is
+        # density * Np entries a row), as does the write counter
+        return [flat_param_pspec(), PartitionSpec(), PartitionSpec(),
+                PartitionSpec()]
 
     def expected_layout(self, spec, depth: int) -> Dict[str, Tuple]:
         m = self._m(spec)
@@ -502,17 +592,11 @@ def build_ring(init_params: Any, fl, *, mesh: Optional[Any] = None,
     axis has size m > 1) and ``shard_ring=True``, each rank keeps only its
     slice of every row on the codec's ``pspecs``; ``shard_ring=False`` keeps
     the whole rows on every rank. Every rank calls this with the same
-    params (and ``rows``). The delta codec on a mesh of more than one rank
-    raises (Slice E2).
+    params (and ``rows``).
     """
     spec = make_flat_spec(init_params, fl.server_pass_block_n, mesh)
     depth = fl.max_staleness + 1
     codec = resolve_codec(fl)
-    if codec.name == "delta" and mesh_spans_processes(mesh):
-        raise NotImplementedError(
-            "the delta ring on a mesh is not ported: its top-m over a "
-            "model-sharded row needs a cross-shard top-k in lax.top_k's tie "
-            "order (ROADMAP.md, Slice E2)")
     if rows is None:
         state = codec.init_state(spec, flatten_tree(spec, init_params),
                                  depth)
@@ -522,10 +606,10 @@ def build_ring(init_params: Any, fl, *, mesh: Optional[Any] = None,
     sharded = _sharded(spec, shard_ring)
     if sharded:
         # each rank copies its slice out of the whole rows, which then go
-        leaves = [local_slice(t, mesh, ps).contiguous().clone()
-                  for t, ps in zip(state_tensors(state), codec.pspecs(spec))]
-        state = leaves[0] if isinstance(state, torch.Tensor) else \
-            type(state)(*leaves)
+        state = _map_tensors(
+            state, [local_slice(t, mesh, ps).contiguous().clone()
+                    for t, ps in zip(state_tensors(state),
+                                     codec.pspecs(spec))])
     _LAST_BUILT.update(
         ring_codec=codec.name,
         ring_bytes_per_device=codec.device_bytes(
@@ -541,10 +625,9 @@ def ring_shards(fl, spec, state, mesh: Optional[Any] = None,
     if not _sharded(spec, shard_ring):
         return state
     codec = resolve_codec(fl)
-    wrapped = [LocalShard(t, mesh, ps)
-               for t, ps in zip(state_tensors(state), codec.pspecs(spec))]
-    return wrapped[0] if isinstance(state, torch.Tensor) else \
-        type(state)(*wrapped)
+    return _map_tensors(state, [
+        LocalShard(t, mesh, ps)
+        for t, ps in zip(state_tensors(state), codec.pspecs(spec))])
 
 
 def ring_state_to_host(fl, state) -> Any:

@@ -12,6 +12,9 @@ order on every rank (``sum_in_rank_order``), so the bits do not depend on
 the backend's allreduce. All other traffic of the round is exact data
 movement: the bases a data row trains from (over ``model``), deltas and
 probe losses (over ``data``), the new flat vector (over ``model``).
+``top_k_across`` selects across ranks in ``jax.lax.top_k``'s order with one
+all-gather of each rank's candidates (the delta ring's top-m over
+``model``, the population window over ``data``).
 
 Under gloo (the backend for ranks that share one card: NCCL refuses two
 ranks on one device) a CUDA tensor goes through host memory explicitly.
@@ -23,7 +26,8 @@ here starts a process group: ``launch/multihost.py`` does.
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -94,6 +98,47 @@ def sum_in_rank_order(t: torch.Tensor, group) -> torch.Tensor:
     for i in range(1, n):
         acc = acc + parts[i]
     return acc
+
+
+def top_k_across(values: torch.Tensor, global_idx: torch.Tensor, k: int,
+                 group, payload: Sequence[torch.Tensor] = ()
+                 ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
+    """The ``k`` largest of ``values`` over ``group``, in ``jax.lax.top_k``'s
+    order: descending, ties to the lower global index.
+
+    Each rank holds a contiguous slice of one vector (or of one batch of
+    vectors: the last axis is the split one), rank r's slice below rank
+    r + 1's in the group's order; ``global_idx`` (the last axis' global
+    positions, broadcast against ``values``) says where. A rank takes its
+    ``min(k, local)`` candidates by a stable descending sort, one all-gather
+    joins every rank's candidates in rank order, and a stable descending sort
+    of the joined values, cut to ``k``, merges them. This is exact: each
+    rank's list keeps equal values in index order and the ranks come in index
+    order, so the joined list already holds ties in global order, which the
+    stable sort keeps. ``payload`` tensors (the shape of ``values``, 4- or
+    8-byte dtypes) ride in the same gather and come back beside each winner.
+
+    Returns ``(values, global_idx, payload)`` with last axis ``min(k,
+    total)``, the same on every rank.
+    """
+    take = min(k, values.shape[-1])
+    order = torch.sort(values, dim=-1, descending=True,
+                       stable=True).indices[..., :take]
+    idx = torch.broadcast_to(global_idx, values.shape)
+    fields = [t.gather(-1, order) for t in (values, idx, *payload)]
+    words = [t.contiguous().view(torch.int32).reshape(
+        t.shape + (t.element_size() // 4,)) for t in fields]
+    joined = all_gather_cat(torch.cat(words, dim=-1), group, dim=-2)
+    out, pos = [], 0
+    for t, w in zip(fields, words):
+        width = w.shape[-1]
+        out.append(joined[..., pos:pos + width].contiguous().view(t.dtype)
+                   .squeeze(-1))
+        pos += width
+    keep = torch.sort(out[0], dim=-1, descending=True,
+                      stable=True).indices[..., :k]
+    out = [t.gather(-1, keep) for t in out]
+    return out[0], out[1], out[2:]
 
 
 def barrier() -> None:

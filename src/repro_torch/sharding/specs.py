@@ -90,7 +90,7 @@ def kclient_pspec() -> PartitionSpec:
 
 def client_state_pspec() -> PartitionSpec:
     """(N,) per-client population state: N over ``data`` (the population
-    engine's mesh branch, Slice E2)."""
+    engine's mesh branch, ``sim/population.py``)."""
     return P(DATA_AXIS)
 
 

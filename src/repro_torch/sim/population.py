@@ -37,6 +37,25 @@ The host twins ``CounterBehavior``/``CounterDataset`` consume the SAME
 counter streams, so ``run_vectorized`` driven by them reproduces this
 engine's events and round log; their float arithmetic is IEEE operations
 only, so their draws equal the device's bit for bit on any device.
+
+**On a mesh** (``mesh=``; one process a rank, ``sharding/collectives.py``)
+the ``(N,)`` state and statics split over the ``data`` axis when its size d
+> 1 divides N (``_n_pspec``: ``P("data")``); otherwise every rank holds all
+N and runs the single-device step. Speeds are sorted over all N, so each
+rank draws all N speeds and keeps its slice; the rest is drawn for its own
+clients. A fast window takes each rank's K smallest keys with every field
+the window reads and joins them in ONE all-gather over ``data``
+(``top_k_across``); keys are unique, so the K smallest of the joined lists
+are the window, and every rank computes the re-entry check, taus, slots and
+times from the same gathered bits and writes the selected clients it holds.
+The drop-consume chains run over a rank's own clients; their drop counts
+meet in one more gather (scenarios with drops only). The ``(N,)`` state
+never moves in a fast window. An exact window gathers the whole state and
+statics (one all-gather), walks it as one device does and keeps the rank's
+slice: exact by construction, and counted in ``engine_exact_windows_total``.
+Every read that steers a collective (the re-entry flag, the exact walk's
+counts) is made from bits all ranks hold alike, so the ranks take the same
+branches (``window_step.agreed``).
 """
 from __future__ import annotations
 
@@ -46,6 +65,7 @@ import functools
 import heapq
 import math
 import time
+import zlib
 from typing import (Any, Callable, Dict, Iterator, List, NamedTuple,
                     Optional, Sequence, Tuple)
 
@@ -54,7 +74,7 @@ import torch
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.round_body import make_ring_round
-from repro_torch.core.version_store import ring_state_to_host
+from repro_torch.core.version_store import ring_shards, ring_state_to_host
 from repro_torch.data.synthetic import ClientDataset
 from repro_torch.obs.metrics import MetricsRegistry, default_registry
 from repro_torch.obs.trace import (
@@ -63,6 +83,19 @@ from repro_torch.obs.trace import (
     SPAN_CHECKPOINT,
     SPAN_HOST_SYNC,
     Tracer,
+)
+from repro_torch.sharding.collectives import (
+    LocalShard,
+    all_gather_cat,
+    fetch_replicated,
+    sum_in_rank_order,
+    top_k_across,
+)
+from repro_torch.sharding.specs import (
+    DATA_AXIS,
+    PartitionSpec,
+    client_state_pspec,
+    mesh_axis_size,
 )
 from repro_torch.sim.base import (
     SimResult,
@@ -91,12 +124,36 @@ _TAG_SPREAD = 402  # static: log-uniform in-tier spread
 _TAG_COMM = 403    # static: comm tier assignment
 _TAG_PHASE = 404   # static: diurnal phase offset
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the population engine on a mesh is not ported: its data-sharded "
-            "(N,) state needs a cross-shard top-k in lax.top_k's tie order "
-            "(ROADMAP.md, Slice E2)")
+def _n_pspec(mesh, n: int) -> PartitionSpec:
+    """Spec for ``(N,)`` client tensors: ``P("data")`` when the ``data`` axis
+    has size d > 1 and divides N, else replicated (the JAX package's)."""
+    d = mesh_axis_size(mesh, DATA_AXIS)
+    return client_state_pspec() if d > 1 and n % d == 0 else PartitionSpec()
+
+
+class _Clients(NamedTuple):
+    """The clients ``[lo, hi)`` this rank holds and the ``data`` group their
+    state is split over (None: the whole state on every rank)."""
+
+    lo: int
+    hi: int
+    group: Any
+
+
+def _clients(mesh, n: int) -> _Clients:
+    if _n_pspec(mesh, n) == PartitionSpec():
+        return _Clients(0, n, None)
+    per = n // mesh_axis_size(mesh, DATA_AXIS)
+    lo = mesh.get_local_rank(DATA_AXIS) * per
+    return _Clients(lo, lo + per, mesh.get_group(DATA_AXIS))
+
+
+def _run_device(mesh, device: DeviceLike) -> torch.device:
+    dev = resolve_device(device)
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"mesh of {mesh.device_type!r} ranks, device "
+                         f"{str(dev)!r}")
+    return dev
 
 
 def _stream_key(seed: int, tag: int, device: torch.device) -> threefry.Key:
@@ -229,38 +286,46 @@ def make_behavior_fns(sc: Scenario, seed: int,
                         has_drops=has_drops)
 
 
-def _init_statics(sc: Scenario, n: int, seed: int,
-                 device: torch.device) -> PopStatics:
+def _init_statics(sc: Scenario, n: int, seed: int, device: torch.device,
+                  lo: int = 0, hi: Optional[int] = None) -> PopStatics:
     """Per-client statics from counter draws: tier and comm tier by
     ``randint``, in-tier spread (log-uniform) and diurnal phase by
-    ``uniform``; speeds sorted, like ``ClientBehavior``'s."""
+    ``uniform``; speeds sorted over all N, like ``ClientBehavior``'s.
+
+    Clients ``[lo, hi)`` only (all by default): draws are random-access, so
+    a slice equals the whole population's slice bit for bit. The sort is
+    global, so every caller draws all N speeds and keeps its slice."""
+    hi = n if hi is None else hi
     tiers = torch.tensor(sc.compute_tiers, dtype=torch.float32, device=device)
     comms = torch.tensor(sc.comm_tiers, dtype=torch.float32, device=device)
     log_slow = f32(math.log(max(sc.max_slowdown, 1.0 + 1e-9)))
-    cids = torch.arange(n, dtype=torch.int32, device=device)
 
-    def key(tag):
-        return threefry.fold_in(_stream_key(seed, tag, device), cids)
+    def key(tag, a, b):
+        return threefry.fold_in(_stream_key(seed, tag, device), torch.arange(
+            a, b, dtype=torch.int32, device=device))
 
-    tier = threefry.randint(key(_TAG_TIER), (), 0, len(sc.compute_tiers))
-    spread = threefry.exp(threefry.uniform(key(_TAG_SPREAD), (), 0.0,
+    tier = threefry.randint(key(_TAG_TIER, 0, n), (), 0,
+                            len(sc.compute_tiers))
+    spread = threefry.exp(threefry.uniform(key(_TAG_SPREAD, 0, n), (), 0.0,
                                            log_slow))
-    comm = comms[threefry.randint(key(_TAG_COMM), (), 0,
+    comm = comms[threefry.randint(key(_TAG_COMM, lo, hi), (), 0,
                                   len(sc.comm_tiers)).long()]
-    phase = threefry.uniform(key(_TAG_PHASE), (), 0.0, sc.diurnal_period)
+    phase = threefry.uniform(key(_TAG_PHASE, lo, hi), (), 0.0,
+                             sc.diurnal_period)
     speed = torch.sort(tiers[tier.long()] * spread).values
-    return PopStatics(speed=speed, comm=comm, phase=phase)
+    return PopStatics(speed=speed[lo:hi].contiguous(), comm=comm, phase=phase)
 
 
-def _init_state(sc: Scenario, n: int, seed: int,
-               statics: PopStatics) -> PopState:
+def _init_state(sc: Scenario, n: int, seed: int, statics: PopStatics,
+                lo: int = 0) -> PopState:
     """Every client starts training at t=0 (availability-gated) from
-    version 0, duration draw 0."""
+    version 0, duration draw 0; clients ``[lo, lo + len(statics))``."""
     fns = make_behavior_fns(sc, seed, statics.speed.device)
     dev = statics.speed.device
-    cids = torch.arange(n, dtype=torch.int32, device=dev)
-    zi = torch.zeros(n, dtype=torch.int32, device=dev)
-    start = fns.gate(statics.phase, torch.zeros(n, device=dev))
+    n_loc = statics.speed.shape[0]
+    cids = torch.arange(lo, lo + n_loc, dtype=torch.int32, device=dev)
+    zi = torch.zeros(n_loc, dtype=torch.int32, device=dev)
+    start = fns.gate(statics.phase, torch.zeros(n_loc, device=dev))
     dur = fns.duration(cids, zi, start, statics.speed, statics.comm)
     scalar_i = torch.zeros((), dtype=torch.int32, device=dev)
     return PopState(t_next=start + dur, k_next=zi, batch_k=zi.clone(),
@@ -270,7 +335,8 @@ def _init_state(sc: Scenario, n: int, seed: int,
 
 
 def make_window_step(sc: Scenario, fl: FLConfig, n: int, seed: int,
-                     device: torch.device, syncs) -> Callable:
+                     device: torch.device, clients: _Clients, syncs,
+                     exact) -> Callable:
     """One K-upload window over device tensors.
 
     ``window_step(statics, state) -> (new_state, win)``: ``win`` holds the
@@ -280,33 +346,52 @@ def make_window_step(sc: Scenario, fl: FLConfig, n: int, seed: int,
     ``run_vectorized``'s ``collect_window`` and trigger bookkeeping event for
     event. ``state`` is not modified. ``syncs`` (an ``obs`` counter) counts
     the host's reads: the re-entry flag, one per drop-chain loop pass, one
-    per pass of the exact walk.
+    per pass of the exact walk; ``exact`` (a counter) the windows the exact
+    walk ran.
+
+    ``clients`` (``_clients(mesh, n)``) splits the ``(N,)`` state over the
+    ``data`` group: ``statics`` and ``state`` hold clients ``[lo, hi)`` and
+    the window is the same on every rank (module docstring). The reads that
+    steer a collective (the re-entry flag, the exact walk's counts) come from
+    bits every rank holds alike; ``window_step.agreed`` keeps their count and
+    a CRC of their values, for the ranks to compare.
     """
     fns = make_behavior_fns(sc, seed, device)
     k = fl.buffer_size
     ring_depth = fl.max_staleness + 1
     max_stal = fl.max_staleness
     m = fl.local_steps
+    lo, hi, group = clients
+    n_loc = hi - lo
+    cids_loc = torch.arange(lo, hi, dtype=torch.int64, device=device)
     cids_all = torch.arange(n, dtype=torch.int64, device=device)
     force_exact = k > n
+    agreed = {"reads": 0, "crc": 0}
 
     def read(x: torch.Tensor):
         """A scalar read from the device, counted."""
         syncs.inc()
         return x.item()
 
+    def agree(x: torch.Tensor):
+        """A read every rank makes alike (it steers the collectives)."""
+        v = read(x)
+        agreed["reads"] += 1
+        agreed["crc"] = zlib.crc32(repr(v).encode(), agreed["crc"])
+        return v
+
     def select(idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """``idx[mask]``, whose length the host reads from the device."""
         syncs.inc()
         return idx[mask]
 
-    def _advance(statics, cid, t, ki):
-        """Reschedule after attempt ``ki``: gate, then draw ``ki + 1``."""
-        s = fns.gate(statics.phase[cid], t)
-        return s + fns.duration(cid.to(torch.int32), ki + 1, s,
-                                statics.speed[cid], statics.comm[cid])
+    def _advance(cid, t, ki, sp, cm, ph):
+        """Reschedule after attempt ``ki``: gate, then draw ``ki + 1``;
+        ``sp``/``cm``/``ph`` are the clients' statics."""
+        s = fns.gate(ph, t)
+        return s + fns.duration(cid.to(torch.int32), ki + 1, s, sp, cm)
 
-    def _chains(statics, cid, t, ki, more):
+    def _chains(cid, t, ki, sp, cm, ph, more):
         """Follow drop chains: while ``more(cid, t, k)`` holds, the pending
         attempt is lost and the client reschedules. Returns ``(t, k, drops)``
         per client. Only the clients still in a chain are recomputed; each
@@ -314,29 +399,30 @@ def make_window_step(sc: Scenario, fl: FLConfig, n: int, seed: int,
         t, ki = t.clone(), ki.clone()
         nd = torch.zeros_like(ki)
         idx = select(torch.arange(len(cid), device=device),
-                          more(cid, t, ki))
+                     more(cid, t, ki))
         while idx.numel():
             c = cid[idx]
-            t_new = _advance(statics, c, t[idx], ki[idx])
+            t_new = _advance(c, t[idx], ki[idx], sp[idx], cm[idx], ph[idx])
             k_new = ki[idx] + 1
             t[idx], ki[idx] = t_new, k_new
             nd[idx] += 1
             idx = select(idx, more(c, t_new, k_new))
         return t, ki, nd
 
-    def _peek(statics, cid, t, ki):
+    def _peek(cid, t, ki, sp, cm, ph):
         """Next ACCEPTED upload of each client: ``(t, k, drops consumed)``.
         Pure: counter draws are random-access."""
         if not fns.has_drops:
             return t, ki, torch.zeros_like(ki)
-        return _chains(statics, cid, t, ki,
+        return _chains(cid, t, ki, sp, cm, ph,
                        lambda c, t_, k_: fns.dropped(c.to(torch.int32), k_))
 
     def _exact(st: PopState, statics: PopStatics):
-        """The host event loop over device tensors: pop the lexicographically
-        smallest (t, cid) pending event until K uploads are accepted. A pass
-        runs K - accepted events (never more than the window needs), then
-        reads the accepted count."""
+        """The host event loop over device tensors (the whole state): pop
+        the lexicographically smallest (t, cid) pending event until K uploads
+        are accepted. A pass runs K - accepted events (never more than the
+        window needs), then reads the accepted count."""
+        exact.inc()
         v = st.version
         t_next, k_next = st.t_next.clone(), st.k_next.clone()
         batch_k, bv = st.batch_k.clone(), st.base_version.clone()
@@ -353,7 +439,8 @@ def make_window_step(sc: Scenario, fl: FLConfig, n: int, seed: int,
                 i = torch.argmin(_sort_key(t_next, cids_all)).reshape(1)
                 t, ki = t_next[i], k_next[i]
                 acc = ~fns.dropped(i.to(torch.int32), ki)
-                t_next[i] = _advance(statics, i, t, ki)
+                t_next[i] = _advance(i, t, ki, statics.speed[i],
+                                     statics.comm[i], statics.phase[i])
                 k_next[i] = ki + 1
                 bvi = bv[i]
                 bvi = torch.where(bvi < v - max_stal, v, bvi)
@@ -370,7 +457,7 @@ def make_window_step(sc: Scenario, fl: FLConfig, n: int, seed: int,
                 bv[i] = v  # a drop AND a non-trigger accept re-pull v
                 nev = nev + 1
                 count = count + acc.long()
-            remaining = k - read(count[0])
+            remaining = k - agree(count[0])
         bv[w_c[k - 1:]] = v + 1  # the K-th upload pulls the NEW version
         new_st = PopState(t_next=t_next, k_next=k_next, batch_k=batch_k,
                           base_version=bv, version=v + 1, now=w_t[k - 1],
@@ -378,59 +465,101 @@ def make_window_step(sc: Scenario, fl: FLConfig, n: int, seed: int,
         return new_st, {"cids": w_c, "taus": w_tau, "slots": w_slot,
                         "bk0": w_bk, "t": w_t}
 
+    def _exact_split(st: PopState, statics: PopStatics):
+        """The exact walk on a split state: one all-gather over ``data``
+        brings the whole state and statics to every rank, which walks it as
+        one device does and keeps its slice."""
+        rows = torch.stack([st.t_next.view(torch.int32), st.k_next,
+                            st.batch_k, st.base_version,
+                            *(s.view(torch.int32) for s in statics)])
+        whole = all_gather_cat(rows, group, dim=1)
+        f = [whole[i].view(torch.float32) for i in (0, 4, 5, 6)]
+        new_st, win = _exact(
+            st._replace(t_next=f[0], k_next=whole[1], batch_k=whole[2],
+                        base_version=whole[3]), PopStatics(*f[1:]))
+        return new_st._replace(**{
+            name: getattr(new_st, name)[lo:hi].clone() for name in (
+                "t_next", "k_next", "batch_k", "base_version")}), win
+
+    def _put(field: torch.Tensor, pos: torch.Tensor, values) -> torch.Tensor:
+        """A copy of ``field`` with ``values`` written at ``pos``; position
+        ``n_loc`` (a client another rank holds) goes to a spare slot that is
+        dropped, so no host read decides what this rank writes."""
+        ext = torch.cat([field, field.new_zeros(1)])
+        ext[pos] = values
+        return ext[:n_loc]
+
     def window_step(statics: PopStatics, st: PopState):
         if force_exact:
-            return _exact(st, statics)
+            return (_exact(st, statics) if group is None
+                    else _exact_split(st, statics))
         v = st.version
-        t_acc, k_acc, nd_pre = _peek(statics, cids_all, st.t_next, st.k_next)
+        t_acc, k_acc, nd_pre = _peek(cids_loc, st.t_next, st.k_next,
+                                     statics.speed, statics.comm,
+                                     statics.phase)
         # the K smallest accepted (t, cid): one unique int64 key per
         # client, so the selection is exact and ties go to the lower cid
-        _, sel = torch.topk(_sort_key(t_acc, cids_all), k, largest=False,
-                            sorted=True)
-        t_sel = t_acc[sel]
+        key = _sort_key(t_acc, cids_loc)
+        fields = (t_acc, k_acc, nd_pre, st.base_version, st.batch_k,
+                  statics.speed, statics.comm, statics.phase)
+        if group is None:
+            _, sel = torch.topk(key, k, largest=False, sorted=True)
+            fields = [f[sel] for f in fields]
+        else:
+            # every rank's K smallest, one all-gather over data with each
+            # candidate's fields, the K smallest of those: the same window
+            # on every rank; the (N,) state never moves
+            _, sel, fields = top_k_across(-key, cids_loc, k, group,
+                                          payload=fields)
+        t_sel, k_acc_s, nd_s, bv, bk0, sp_s, cm_s, ph_s = fields
         t_w, trig = t_sel[k - 1], sel[k - 1:]  # (1,): a tensor index
         # staleness bookkeeping, host order: an in-window drop re-pulled v
         # first; then the ring resync check
-        bv = st.base_version[sel]
-        bv = torch.where(nd_pre[sel] > 0, v, bv)
+        bv = torch.where(nd_s > 0, v, bv)
         bv = torch.where(bv < v - max_stal, v, bv)
         taus = (v - bv).float()
         slots = torch.remainder(bv, ring_depth).long()
-        bk0 = st.batch_k[sel]
-        k_sel = k_acc[sel] + 1
+        k_sel = k_acc_s + 1
         # post-accept reschedule, then the re-entry check: if a selected
         # client's NEXT accepted upload lands before the trigger event, the
         # host walk would have put it IN this window: take the exact path
-        t_re = _advance(statics, sel, t_sel, k_acc[sel])
-        t_acc2, _, _ = _peek(statics, sel, t_re, k_sel)
+        t_re = _advance(sel, t_sel, k_acc_s, sp_s, cm_s, ph_s)
+        t_acc2, _, _ = _peek(sel, t_re, k_sel, sp_s, cm_s, ph_s)
         reenter = torch.any((t_acc2 < t_w) | ((t_acc2 == t_w) & (sel < trig)))
-        if read(reenter):
-            return _exact(st, statics)
-        t_next, k_next = st.t_next.clone(), st.k_next.clone()
-        batch_k, base_version = st.batch_k.clone(), st.base_version.clone()
-        t_next[sel] = t_re
-        k_next[sel] = k_sel
-        batch_k[sel] += m
-        base_version[sel] = v
-        nev = st.num_events + k + torch.sum(nd_pre[sel]).to(torch.int32)
+        if agree(reenter):
+            return (_exact(st, statics) if group is None
+                    else _exact_split(st, statics))
+        # each rank writes the selected clients it holds
+        pos = torch.where((sel >= lo) & (sel < hi), sel - lo, n_loc)
+        t_next = _put(st.t_next, pos, t_re)
+        k_next = _put(st.k_next, pos, k_sel)
+        batch_k = _put(st.batch_k, pos, bk0 + m)
+        base_version = _put(st.base_version, pos, v)
+        nev = st.num_events + k + torch.sum(nd_s).to(torch.int32)
         if fns.has_drops:
             # consume every remaining drop with event order <= the trigger
-            # (the host walk popped those this window)
+            # (the host walk popped those this window); a rank walks its
+            # own clients' chains, and their drop counts meet in one sum
             def more(c, t_, k_):
                 before = (t_ < t_w) | ((t_ == t_w) & (c < trig))
                 return before & fns.dropped(c.to(torch.int32), k_)
 
-            t_next, k_next, nd_post = _chains(statics, cids_all, t_next,
-                                              k_next, more)
+            t_next, k_next, nd_post = _chains(cids_loc, t_next, k_next,
+                                              statics.speed, statics.comm,
+                                              statics.phase, more)
             base_version = torch.where(nd_post > 0, v, base_version)
-            nev = nev + torch.sum(nd_post).to(torch.int32)
-        base_version[trig] = v + 1
+            drops = torch.sum(nd_post).to(torch.int32)
+            if group is not None:
+                drops = sum_in_rank_order(drops, group)
+            nev = nev + drops
+        base_version = _put(base_version, pos[k - 1:], v + 1)
         new_st = PopState(t_next=t_next, k_next=k_next, batch_k=batch_k,
                           base_version=base_version, version=v + 1, now=t_w,
                           num_events=nev)
         return new_st, {"cids": sel, "taus": taus, "slots": slots,
                         "bk0": bk0, "t": t_sel}
 
+    window_step.agreed = agreed
     return window_step
 
 
@@ -519,11 +648,15 @@ def init_population(scenario: Scenario, n: int, fl: FLConfig, seed: int = 0,
                     mesh: Optional[Any] = None,
                     device: DeviceLike = "cuda"
                     ) -> Tuple[PopStatics, PopState]:
-    """Fresh statics and state of an N-client population on ``device``."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
-    statics = _init_statics(scenario, n, seed, dev)
-    return statics, _init_state(scenario, n, seed, statics)
+    """Fresh statics and state of an N-client population on ``device``.
+
+    On a ``mesh`` whose ``data`` axis (size d > 1) divides N, a rank holds
+    its ``N / d`` clients (``_n_pspec``); otherwise every rank holds all N.
+    """
+    dev = _run_device(mesh, device)
+    lo, hi, _ = _clients(mesh, n)
+    statics = _init_statics(scenario, n, seed, dev, lo, hi)
+    return statics, _init_state(scenario, n, seed, statics, lo)
 
 
 def _pack_f32(*tensors: torch.Tensor) -> torch.Tensor:
@@ -553,14 +686,21 @@ def collect_windows(scenario: Scenario, n: int, fl: FLConfig,
     host-order (T, K) arrays, the event count and sim time, and the final
     device ``state``. The windows come back in one fetch at the end; the
     window step's own reads count in ``registry``'s
-    ``engine_host_syncs_total``, as the fetch does."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
-    syncs = (registry if registry is not None
-             else default_registry()).counter("engine_host_syncs_total")
+    ``engine_host_syncs_total``, as the fetch does, and its exact walks in
+    ``engine_exact_windows_total``.
+
+    On a ``mesh`` every rank calls this alike; ``state`` is the rank's
+    (``init_population(..., mesh=)``), and the host arrays are the same on
+    every rank. ``agreed`` is the window step's record of the reads that
+    steer collectives (``make_window_step``)."""
+    dev = _run_device(mesh, device)
+    reg = registry if registry is not None else default_registry()
+    syncs = reg.counter("engine_host_syncs_total")
     if statics is None or state is None:
-        statics, state = init_population(scenario, n, fl, seed, device=dev)
-    step = make_window_step(scenario, fl, n, seed, dev, syncs)
+        statics, state = init_population(scenario, n, fl, seed, mesh=mesh,
+                                         device=dev)
+    step = make_window_step(scenario, fl, n, seed, dev, _clients(mesh, n),
+                            syncs, reg.counter("engine_exact_windows_total"))
     wins = []
     for _ in range(num_windows):
         state, win = step(statics, state)
@@ -579,7 +719,8 @@ def collect_windows(scenario: Scenario, n: int, fl: FLConfig,
         ((), np.int32), ((), np.float32)])
     return {"clients": c.astype(np.int64), "tau": tau.astype(np.int64),
             "slots": slots.astype(np.int64), "t": t.astype(np.float64),
-            "num_events": int(nev), "now": float(now), "state": state}
+            "num_events": int(nev), "now": float(now), "state": state,
+            "agreed": dict(step.agreed)}
 
 
 def host_walk_windows(behavior: ClientBehavior, fl: FLConfig,
@@ -946,15 +1087,22 @@ def run_population(loss_fn: Callable, init_params: Any,
     as ``init_state`` (same loss/pool/config/seed/device) resumes
     bit-identically to the uninterrupted run.
     ``total_rounds`` counts from round 0, as in ``run_vectorized``.
-    ``mesh``/``shard_ring`` are the JAX signature's: a mesh raises until the
-    population engine's mesh branch is ported (Slice E2).
+
+    On a (data, model) ``mesh`` every rank calls this with the same
+    arguments: the params and the pool are replicated, the ``(N,)`` state
+    split over ``data`` where it divides (``init_population``), the ring
+    built by ``build_ring(..., mesh=, shard_ring=)``, and each round's K
+    clients go through the sharded round body (``make_ring_round(...,
+    mesh=)``). The round log and ``final_params`` are the same on every
+    rank; ``capture_state`` gathers the whole ``(N,)`` state and ring to
+    every rank, and such a snapshot resumes on the mesh (or off it)
+    bit-identically.
     """
     if latency is not None:
         raise ValueError("run_population is scenario-driven; LatencyModel "
                          "populations need the host engine "
                          "(engine='vectorized')")
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    dev = _run_device(mesh, device)
     with _card_numerics(dev):
         sc = scenario if scenario is not None else Scenario(
             name="population-default",
@@ -972,11 +1120,16 @@ def run_population(loss_fn: Callable, init_params: Any,
         launch_hist = reg.histogram("engine_launch_seconds")
         syncs = reg.counter("engine_host_syncs_total")
         dispatches_start = dispatches.value
+        pspec_n = _n_pspec(mesh, n)
+        clients = _clients(mesh, n)
 
+        # the pool, its offsets and sizes too, on every rank (8 B a client)
         pool_x, pool_y, offsets, sizes = pool.to(dev)
         offsets, sizes = offsets.to(torch.int32), sizes.to(torch.int32)
-        statics = _init_statics(sc, n, seed, dev)
-        window_step = make_window_step(sc, fl, n, seed, dev, syncs)
+        statics = _init_statics(sc, n, seed, dev, clients.lo, clients.hi)
+        window_step = make_window_step(
+            sc, fl, n, seed, dev, clients, syncs,
+            reg.counter("engine_exact_windows_total"))
         k_train = _stream_key(seed, _TAG_TRAIN, dev)
         k_probe = _stream_key(seed, _TAG_PROBE, dev)
 
@@ -987,8 +1140,9 @@ def run_population(loss_fn: Callable, init_params: Any,
         # ---- init / resume -----------------------------------------------
         if init_state is None:
             params = to_device(init_params)
-            spec, ring = init_version_ring(params, fl)
-            state = _init_state(sc, n, seed, statics)
+            spec, ring = init_version_ring(params, fl, mesh=mesh,
+                                           shard_ring=shard_ring)
+            state = _init_state(sc, n, seed, statics, clients.lo)
             version = 0
             history: List[Dict] = []
             round_log_prefix: List[Dict] = []
@@ -998,17 +1152,22 @@ def run_population(loss_fn: Callable, init_params: Any,
                     f"checkpoint has {len(init_state.base_version)} clients, "
                     f"this run has {n}")
             params = to_device(init_state.params)
-            spec, ring = init_version_ring(params, fl, rows=init_state.ring)
+            spec, ring = init_version_ring(params, fl, mesh=mesh,
+                                           shard_ring=shard_ring,
+                                           rows=init_state.ring)
             version = init_state.version
 
             def place(arr, dtype):
                 return torch.from_numpy(np.array(arr, dtype)).to(dev)
 
+            def place_n(arr, dtype):  # this rank's clients
+                return place(np.asarray(arr)[clients.lo:clients.hi], dtype)
+
             state = PopState(
-                t_next=place(init_state.t_next, np.float32),
-                k_next=place(init_state.k_next, np.int32),
-                batch_k=place(init_state.batch_k, np.int32),
-                base_version=place(init_state.base_version, np.int32),
+                t_next=place_n(init_state.t_next, np.float32),
+                k_next=place_n(init_state.k_next, np.int32),
+                batch_k=place_n(init_state.batch_k, np.int32),
+                base_version=place_n(init_state.base_version, np.int32),
                 version=place(version, np.int32),
                 now=place(init_state.now, np.float32),
                 num_events=place(init_state.num_events, np.int32))
@@ -1019,7 +1178,8 @@ def run_population(loss_fn: Callable, init_params: Any,
                 # the resumed history matches the uninterrupted run
                 history.pop()
             round_log_prefix = [dict(r) for r in init_state.round_log]
-        ring_round = make_ring_round(loss_fn, fl, dev, spec)
+        ring_round = make_ring_round(loss_fn, fl, dev, spec, mesh=mesh,
+                                     shard_ring=shard_ring)
 
         def maybe_eval(force=False):
             if eval_fn is None or not (force or version % eval_every == 0):
@@ -1066,6 +1226,7 @@ def run_population(loss_fn: Callable, init_params: Any,
         maybe_eval(force=True)
 
         # ---- one device-to-host fetch for the whole run's round log ------
+        # (windows and round infos are the same on every rank: a local read)
         rounds = len(pending)
         fields = len(_LOG_FIELDS) + 1
         with tr.span(SPAN_HOST_SYNC, what="round_log", launches=rounds):
@@ -1089,15 +1250,16 @@ def run_population(loss_fn: Callable, init_params: Any,
         if capture_state:
             with tr.span(SPAN_CHECKPOINT, version=version):
                 syncs.inc()
+                n_state = fetch_replicated(
+                    [LocalShard(t, mesh, pspec_n) for t in state[:4]])
                 final_state = PopulationEngineState(
                     version=version, now=now, num_events=num_events,
-                    t_next=state.t_next.cpu().numpy(),
-                    k_next=state.k_next.cpu().numpy(),
-                    batch_k=state.batch_k.cpu().numpy(),
-                    base_version=state.base_version.cpu().numpy(),
+                    t_next=n_state[0], k_next=n_state[1],
+                    batch_k=n_state[2], base_version=n_state[3],
                     params=tree_map(lambda t: t.detach().cpu().numpy(),
                                     params),
-                    ring=ring_state_to_host(fl, ring),
+                    ring=ring_state_to_host(fl, fetch_replicated(ring_shards(
+                        fl, spec, ring, mesh, shard_ring))),
                     history=[dict(h) for h in history],
                     round_log=[dict(r) for r in round_log])
         return SimResult(history=history, server_rounds=version, sim_time=now,

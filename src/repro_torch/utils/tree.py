@@ -56,6 +56,10 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def tree_add(a: Any, b: Any) -> Any:
+    return tree_map(torch.add, a, b)
+
+
 def tree_sub(a: Any, b: Any) -> Any:
     return tree_map(torch.sub, a, b)
 

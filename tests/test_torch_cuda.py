@@ -27,7 +27,10 @@ population windows on the card equal the host twin's and the CPU's exactly;
 ``run_population`` in fused/batched mode against reference mode and the CPU
 (events exact, weights rtol 1e-3 / atol 1e-5, as the engine); resume
 bit-identical at the entry point's own cuDNN/TF32 flags, the caller's flags
-restored.
+restored. Slice E2 (a (1, 2) world of two ranks on the card): the delta ring
+runs K3 alone on its precomputed distances; ``top_k_across`` and the
+model-sharded delta codec on CUDA tensors equal their CPU results (sparse
+rows, base and decoded rows bit for bit, distances rtol 1e-5).
 """
 import numpy as np
 import pytest
@@ -859,7 +862,8 @@ def _quad_loss(params, batch):
     return torch.mean((x @ params["w"] - y) ** 2), {}
 
 
-SUBSTRATE_RUNS = (("f32", "batched"), ("f32", "fused"), ("int8", "fused"))
+SUBSTRATE_RUNS = (("f32", "batched"), ("f32", "fused"), ("int8", "fused"),
+                  ("delta", "batched"))
 
 
 def rank_substrate_on_card(rounds):
@@ -886,28 +890,107 @@ def rank_substrate_on_card(rounds):
             "launches": (ops.server_update.launches, ops.sq_dists.launches,
                          ops.weighted_sum.launches,
                          rc_ops.int8_sq_dists.launches)}
+    out["e2"] = {dev: _e2_on(dev, mesh) for dev in ("cuda", "cpu")}
     return out
 
 
-@pytest.mark.cuda
-def test_substrate_world_on_card(cuda, tmp_path):
-    """A (1, 2) world of two ranks sharing the card (gloo): K2 + K3 on each
-    rank's slice in both f32 kernel modes (K1 needs global distances), K4 +
-    K3 on the int8 ring; every rank's round log and params bit-identical."""
+def _e2_on(device, mesh):
+    """Slice E2's primitives on ``device`` on a (1, 2) mesh: top_k_across
+    (ties, zero padding, k above a rank's slice) and the model-sharded delta
+    codec (writes, a base refresh, decode, distance_sq)."""
+    from repro_torch.core.version_store import build_ring, resolve_codec
+    from repro_torch.sharding.collectives import top_k_across
+
+    group, j = mesh.get_group("model"), mesh.get_local_rank("model")
+    rng = np.random.default_rng(3)
+    x = rng.integers(-3, 4, (4, 4096)).astype(np.float32)
+    x[:, 3000:] = 0.0
+    xs = torch.from_numpy(x[:, j * 2048:(j + 1) * 2048].copy()).to(device)
+    cols = torch.arange(j * 2048, (j + 1) * 2048, dtype=torch.int32,
+                        device=device)
+    out = {}
+    for k in (300, 3000):
+        v, i, (p,) = top_k_across(xs.abs(), cols, k, group, payload=(xs,))
+        out[f"topk_{k}"] = (v.cpu().numpy(), i.cpu().numpy(),
+                            p.cpu().numpy())
+    fl = FLConfig(ring_codec="delta", max_staleness=4, ring_base_refresh=3)
+    params = {"w": torch.from_numpy(
+        rng.standard_normal(44_426).astype(np.float32)).to(device)}
+    spec, state = build_ring(params, fl, mesh=mesh)
+    codec = resolve_codec(fl)
+    lo = j * spec.n_padded // 2
+    flat = torch.zeros(spec.n_padded, device=device)
+    for step in range(4):  # the third write refreshes the base
+        flat[:44_426] += torch.from_numpy(
+            0.01 * rng.standard_normal(44_426).astype(np.float32)).to(device)
+        state = codec.encode(spec, state, step + 1,
+                             flat[lo:lo + spec.n_padded // 2])
+    slots = torch.tensor([0, 1, 2, 3, 4], device=device)
+    out["delta"] = {
+        "idx": state.idx.cpu().numpy(), "val": state.val.cpu().numpy(),
+        "base": state.base.cpu().numpy(),
+        "decode": codec.decode(spec, state, slots).cpu().numpy(),
+        "dists": codec.distance_sq(spec, state, slots, flat,
+                                   mesh=mesh).cpu().numpy()}
+    return out
+
+
+SUBSTRATE_ROUNDS = 4
+
+
+@pytest.fixture(scope="module")
+def card_world2(tmp_path_factory):
+    """The (1, 2) world of ``rank_substrate_on_card``, spawned once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from pathlib import Path
 
     from repro_torch.launch.multihost import spawn_world
 
-    rounds = 4
-    ranks = spawn_world(f"{Path(__file__).resolve()}:rank_substrate_on_card",
-                        2, {"rounds": rounds}, timeout=300,
-                        workdir=str(tmp_path))
+    return spawn_world(f"{Path(__file__).resolve()}:rank_substrate_on_card",
+                       2, {"rounds": SUBSTRATE_ROUNDS}, timeout=300,
+                       workdir=str(tmp_path_factory.mktemp("card_world2")))
+
+
+@pytest.mark.cuda
+def test_substrate_world_on_card(cuda, card_world2):
+    """A (1, 2) world of two ranks sharing the card (gloo): K2 + K3 on each
+    rank's slice in both f32 kernel modes (K1 needs global distances), K4 +
+    K3 on the int8 ring, K3 on the delta ring's precomputed distances; every
+    rank's round log and params bit-identical."""
+    ranks, rounds = card_world2, SUBSTRATE_ROUNDS
     want = {("f32", "batched"): (0, rounds, rounds, 0),
             ("f32", "fused"): (0, rounds, rounds, 0),
-            ("int8", "fused"): (0, 0, rounds, rounds)}
+            ("int8", "fused"): (0, 0, rounds, rounds),
+            ("delta", "batched"): (0, 0, rounds, 0)}
     for key, launches in want.items():
         a, b = ranks[0][key], ranks[1][key]
         assert a["launches"] == b["launches"] == launches, key
         assert a["round_log"] == b["round_log"], key
         assert a["w"].tobytes() == b["w"].tobytes(), key
         assert np.isfinite(a["w"]).all()
+
+
+@pytest.mark.cuda
+def test_top_k_across_on_card_matches_cpu(cuda, card_world2):
+    """top_k_across on CUDA tensors == on CPU tensors, bit for bit, on every
+    rank (ties, zero padding, k above a rank's 2,048 columns)."""
+    for r in card_world2:
+        for k in (300, 3000):
+            for a, b in zip(r["e2"]["cuda"][f"topk_{k}"],
+                            r["e2"]["cpu"][f"topk_{k}"]):
+                assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), k
+
+
+@pytest.mark.cuda
+def test_sharded_delta_codec_on_card_matches_cpu(cuda, card_world2):
+    """The model-sharded delta codec on the card: the same sparse rows and
+    base slice (selections exact), decoded rows equal, eq. 3 distances within
+    rtol 1e-5 of the CPU's (sums in another order), with TF32 off."""
+    for r in card_world2:
+        got, want = r["e2"]["cuda"]["delta"], r["e2"]["cpu"]["delta"]
+        for f in ("idx", "val", "base", "decode"):
+            assert got[f].tobytes() == want[f].tobytes(), f
+        np.testing.assert_allclose(got["dists"], want["dists"], rtol=1e-5)
+    assert card_world2[0]["e2"]["cuda"]["delta"]["dists"].tobytes() == \
+        card_world2[1]["e2"]["cuda"]["delta"]["dists"].tobytes()

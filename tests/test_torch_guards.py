@@ -87,7 +87,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.sharding.specs, repro_torch.sharding.collectives, "
             "repro_torch.launch.mesh, "
             "repro_torch.launch.multihost, repro_torch.launch.shard_scale, "
-            "repro_torch.checkpoint; "
+            "repro_torch.checkpoint, repro_torch.core.secure_agg; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code],
@@ -142,42 +142,65 @@ def test_slice_c_entry_points_default_to_cuda_and_raise(no_cuda):
                              device="cpu").device == torch.device("cpu")
 
 
-def _stub_mesh(data=2, model=2):
-    """What the port reads of a DeviceMesh before any collective."""
-    return SimpleNamespace(mesh_dim_names=("data", "model"),
-                           mesh=torch.empty((data, model)), device_type="cpu")
-
-
 def test_unported_engines_name_their_slice():
     params, clients, fl = _setup()
-    with pytest.raises(NotImplementedError, match="Slice E2"):
-        run_population(lenet_loss, params, clients, fl, 1, mesh=object(),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice E2"):
-        collect_windows(get_scenario("paper-fig1"), 4, fl, 1, mesh=object(),
-                        device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         run_async(lenet_loss, params, clients, fl, 1, engine="nope",
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice E2"):
-        build_ring(params, dataclasses.replace(fl, ring_codec="delta"),
-                   mesh=_stub_mesh())
+    # Slice E2 is ported: a delta ring on a mesh and the population engine
+    # on a mesh build and run (test_slice_e2_paths_raise_on_a_mesh runs them
+    # in worlds of ranks); a mismatched mesh and device still raise
+    with pytest.raises(ValueError, match="mesh of 'cuda' ranks"):
+        collect_windows(get_scenario("paper-fig1"), 4, fl, 1,
+                        mesh=SimpleNamespace(device_type="cuda"),
+                        device="cpu")
+
+
+def rank_e2_paths(shapes):
+    """A rank of a world that runs the Slice E2 paths on each mesh shape."""
+    from repro_torch.launch import multihost
+
+    params, clients, fl = _setup()
+    delta = dataclasses.replace(fl, ring_codec="delta")
+    out = {}
+    for shape in shapes:
+        mesh = multihost.make_round_mesh(*shape, device="cpu")
+        ring = run_async(lenet_loss, params, clients, delta, 1, mesh=mesh,
+                         device="cpu")
+        pop = run_async(lenet_loss, params, clients, fl, 1,
+                        engine="population",
+                        scenario=get_scenario("paper-fig1"), mesh=mesh,
+                        device="cpu")
+        spec, state = build_ring(params, delta, mesh=mesh)
+        out[tuple(shape)] = (ring.server_rounds, pop.server_rounds,
+                             tuple(state.base.shape), spec.n_padded)
+    return out
+
+
+@pytest.fixture(scope="module")
+def e2_worlds(tmp_path_factory):
+    from repro_torch.launch import multihost
+
+    here = Path(__file__).resolve()
+    out = {}
+    for world, shapes in ((2, [(1, 2), (2, 1)]), (4, [(2, 2)])):
+        work = tmp_path_factory.mktemp(f"e2_world{world}")
+        ranks = multihost.spawn_world(f"{here}:rank_e2_paths", world,
+                                      {"shapes": shapes}, timeout=240.0,
+                                      workdir=str(work))
+        assert all(r == ranks[0] for r in ranks[1:])
+        out.update(ranks[0])
+    return out
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (1, 2), (2, 1)])
-def test_slice_e2_paths_raise_on_a_mesh(shape):
-    """The delta ring and the population engine on a mesh wait for Slice E2
-    (a cross-shard top-k); they raise before any collective."""
-    params, clients, fl = _setup()
-    mesh = _stub_mesh(*shape)
-    delta = dataclasses.replace(fl, ring_codec="delta")
-    with pytest.raises(NotImplementedError, match="Slice E2"):
-        run_async(lenet_loss, params, clients, delta, 1, mesh=mesh,
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice E2"):
-        run_async(lenet_loss, params, clients, fl, 1, engine="population",
-                  scenario=get_scenario("paper-fig1"), mesh=mesh,
-                  device="cpu")
+def test_slice_e2_paths_raise_on_a_mesh(e2_worlds, shape):
+    """The delta ring and the population engine on a mesh raised until
+    Slice E2; they now run there: one round each through ``run_async``, and
+    a model-sharded delta ring holds a rank's slice of the base."""
+    ring_rounds, pop_rounds, base_shape, n_padded = e2_worlds[shape]
+    assert (ring_rounds, pop_rounds) == (1, 1)
+    assert base_shape == (n_padded // shape[1],)
 
 
 def test_population_entry_points_default_to_cuda_and_raise(no_cuda):

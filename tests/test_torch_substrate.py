@@ -37,6 +37,17 @@ SPEC_FNS = ("flat_param_pspec", "flat_stacked_pspec", "ring_pspec",
             "ring_codes_pspec", "ring_scales_pspec", "kclient_pspec",
             "client_state_pspec", "info_pspec")
 WORLD_TIMEOUT = 240.0
+DELTA_DENSITIES = (0.05, 0.75)  # m = 13 and 192 of 256; 128 columns a rank
+# collect_windows cases on (2, 1): (preset, n, K, windows, seed)
+WINDOW_CASES = {
+    "bernoulli": ("dropout-bernoulli", 8, 4, 10, 3),  # _shard_worker's
+    "reentry_paper": ("paper-fig1", 4, 3, 12, 5),  # exact windows
+    "reentry_bernoulli": ("dropout-bernoulli", 4, 3, 12, 5),
+    "k_above_n": ("paper-fig1", 4, 5, 6, 1),  # every window exact
+    "n_odd": ("dropout-bernoulli", 7, 3, 10, 2),  # 7 % 2: replicated
+    "fast": ("paper-fig1", 600, 16, 6, 0),  # every window fast
+    "fast_drops": ("dropout-bernoulli", 600, 16, 6, 0),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -156,13 +167,102 @@ def _sharded_pass(inputs, mesh, mode, block_n=0):
             **{k: v.numpy() for k, v in info.items()}}
 
 
+def _topk_cases():
+    """Signed vectors (numpy, seeded) whose |x| top-k ``top_k_across`` takes
+    over a group, with ``k``: ties, zero padding, k above a rank's slice, k
+    equal to the length, and a batch of rows."""
+    rng = np.random.default_rng(11)
+    f = np.float32
+    return {
+        "distinct": (rng.standard_normal(16).astype(f), 5),
+        "duplicates": (rng.integers(-2, 3, 16).astype(f), 7),
+        "zero_padding": (np.concatenate([rng.standard_normal(5),
+                                         np.zeros(11)]).astype(f), 10),
+        "k_above_local": (rng.integers(0, 4, 16).astype(f), 12),
+        "k_is_n": (rng.integers(-2, 2, 16).astype(f), 16),
+        "rows": (rng.integers(-2, 3, (3, 16)).astype(f), 6),
+    }
+
+
+TOPK_CASES = tuple(_topk_cases())
+
+
+def _topk_run(cases, mesh, axis):
+    """``top_k_across`` of |x| with x as the payload, each rank holding its
+    slice of the last axis."""
+    from repro_torch.sharding.collectives import top_k_across
+
+    group = mesh.get_group(axis)
+    size = dist.get_world_size(group)
+    j = mesh.get_local_rank(axis)
+    out = {}
+    for name, (x, k) in cases.items():
+        per = x.shape[-1] // size
+        xs = torch.from_numpy(x[..., j * per:(j + 1) * per].copy())
+        cols = torch.arange(j * per, (j + 1) * per, dtype=torch.int32)
+        v, i, (p,) = top_k_across(xs.abs(), cols, k, group, payload=(xs,))
+        out[name] = (v.numpy(), i.numpy(), p.numpy())
+    return out
+
+
+def _delta_fl(density=0.05, refresh=3, **kw):
+    return {"ring_codec": "delta", "ring_delta_density": density,
+            "ring_base_refresh": refresh, **kw}
+
+
+def _windows_run(mesh, preset, n, k, t, seed):
+    """collect_windows on ``mesh`` with its exact-window count."""
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.sim import get_scenario
+    from repro_torch.sim.population import collect_windows
+
+    reg = MetricsRegistry()
+    multihost.reset_collective_stats()
+    w = collect_windows(get_scenario(preset), n, TFL(**{
+        **QUAD_FL, "num_clients": n, "buffer_size": k}), t, seed=seed,
+        mesh=mesh, device="cpu", registry=reg)
+    w.pop("state")
+    snap = reg.snapshot()
+    return {**w, "exact": snap.get("engine_exact_windows_total", 0.0),
+            "collectives": dict(multihost.COLLECTIVE_STATS, seconds=None)}
+
+
+def _population(mesh, rounds=8, **kw):
+    """run_population on the six quadratic clients (tests/_shard_worker.py's
+    population setup)."""
+    from repro_torch.sim import get_scenario
+    from repro_torch.sim.population import run_population
+
+    return run_population(
+        _t_quad, {"w": np.zeros(4, np.float32)},
+        _quad_clients(TClientDataset), TFL(**QUAD_FL), rounds,
+        eval_fn=_t_wnorm, eval_every=2,
+        scenario=get_scenario("dropout-bernoulli"), seed=0, mesh=mesh,
+        device="cpu", **kw)
+
+
+def _population_record(mesh):
+    """A run, and the same run resumed from its round-4 snapshot."""
+    full = _population(mesh, capture_state=True)
+    half = _population(mesh, rounds=4, capture_state=True)
+    resumed = _population(mesh, init_state=half.final_state,
+                          capture_state=True)
+    out = {"full": _record(full), "resumed": _record(resumed)}
+    for name, res in (("full", full), ("resumed", resumed)):
+        st = res.final_state
+        out[name]["state"] = [np.asarray(a) for a in (
+            st.t_next, st.k_next, st.batch_k, st.base_version)]
+        out[name]["num_launches"] = None
+    return out
+
+
 # ---------------------------------------------------------------------------
 # rank programs
 # ---------------------------------------------------------------------------
 
 
 def rank_world4(work, lenet, lenet_pass, small_pass, cohort_rounds,
-                quad_pass):
+                quad_pass, topk):
     """A world of 4: the (2, 2) and (1, 4) meshes."""
     from repro_torch.checkpoint import load_checkpoint, save_checkpoint
     from repro_torch.core.cohort import init_cohort_state, make_cohort_step
@@ -247,6 +347,29 @@ def rank_world4(work, lenet, lenet_pass, small_pass, cohort_rounds,
     save_checkpoint(str(work / "ring.npz"), {"ring": multihost.LocalShard(
         ring, m22, t_specs.ring_pspec())})
 
+    # Slice E2: the delta ring on (2, 2), its checkpoint; top_k_across over
+    # 4 ranks; the population engine on (4, 1) and (2, 2)
+    out["engine_delta"] = _record(_engine(m22, _delta_fl()))
+    out["engine_delta_replicated"] = _record(_engine(m22, _delta_fl(),
+                                                     shard_ring=False))
+    full = _engine(m22, _delta_fl(), capture_state=True)
+    half = _engine(m22, _delta_fl(), total_rounds=3, capture_state=True)
+    tree = engine_state_to_tree(half.final_state)
+    save_checkpoint(str(work / "engine_delta.npz"), tree, step=3)
+    multihost.barrier()
+    loaded, _ = load_checkpoint(str(work / "engine_delta.npz"), like=tree)
+    out["engine_delta_full"] = _record(full)
+    for shard_ring in (True, False):
+        res = _engine(m22, _delta_fl(), shard_ring=shard_ring,
+                      init_state=engine_state_from_tree(loaded),
+                      capture_state=True)
+        out[f"engine_delta_resumed_{shard_ring}"] = _record(res)
+    out["topk"] = _topk_run(topk, m14, "model")
+    m41 = multihost.make_round_mesh(4, 1, device="cpu")
+    out["win_m41"] = _windows_run(m41, "dropout-bernoulli", 8, 4, 10, 3)
+    out["pop_m41"] = _record(_population(m41))
+    out["pop_m22"] = _population_record(m22)
+
     sink = JsonlSink(str(work / f"sink_rank{rank}.jsonl"))
     sink.emit({"event": "hello", "rank": rank})
     sink.close()
@@ -254,8 +377,9 @@ def rank_world4(work, lenet, lenet_pass, small_pass, cohort_rounds,
     return out
 
 
-def rank_world2(lenet):
-    """A world of 2: the (1, 2) mesh (int8 ring, ring bytes)."""
+def rank_world2(lenet, topk):
+    """A world of 2: the (1, 2) mesh (int8 and delta rings, ring bytes) and
+    the (2, 1) mesh (the population engine)."""
     from repro_torch.core.version_store import (
         ring_device_bytes,
         ring_provenance,
@@ -264,11 +388,25 @@ def rank_world2(lenet):
     from repro_torch.sim.engine import init_version_ring
 
     m12 = multihost.make_round_mesh(1, 2, device="cpu")
+    m21 = multihost.make_round_mesh(2, 1, device="cpu")
     out = {}
     for codec in ("f32", "int8"):
         for shard_ring in (True, False):
             out[f"engine_{codec}_{shard_ring}"] = _record(_engine(
                 m12, {"ring_codec": codec}, shard_ring=shard_ring))
+    # Slice E2: the delta ring at two densities (m below and above a
+    # rank's 128 columns), sharded and replicated, and on (2, 1)
+    for density in DELTA_DENSITIES:
+        for shard_ring in (True, False):
+            out[f"engine_delta_{density}_{shard_ring}"] = _record(_engine(
+                m12, _delta_fl(density), shard_ring=shard_ring))
+    out["engine_delta_m21"] = _record(_engine(m21, _delta_fl()))
+    out["topk"] = _topk_run(topk, m12, "model")
+    for name, args in WINDOW_CASES.items():
+        out[f"win_{name}"] = _windows_run(m21, *args)
+    out["win_m12"] = _windows_run(m12, *WINDOW_CASES["bernoulli"])
+    out["pop_m21"] = _population_record(m21)
+    for codec in ("f32", "int8", "delta"):
         fl = TFL(ring_codec=codec)
         spec, ring = init_version_ring(_tensors(lenet), fl, mesh=m12)
         out[f"ring_bytes_{codec}"] = (
@@ -374,7 +512,7 @@ def world4(lenet_np, tmp_path_factory):
               "lenet_pass": _pass_inputs(lenet_np, 8, 0),
               "small_pass": _pass_inputs(small, 4, 1),
               "cohort_rounds": _cohort_rounds(),
-              "quad_pass": _server_pass_inputs()}
+              "quad_pass": _server_pass_inputs(), "topk": _topk_cases()}
     ranks = multihost.spawn_world(f"{HERE}:rank_world4", 4, kwargs,
                                   timeout=WORLD_TIMEOUT,
                                   workdir=str(work / "spawn"))
@@ -385,8 +523,8 @@ def world4(lenet_np, tmp_path_factory):
 def world2(lenet_np, tmp_path_factory):
     work = tmp_path_factory.mktemp("world2")
     return multihost.spawn_world(f"{HERE}:rank_world2", 2,
-                                 {"lenet": lenet_np}, timeout=WORLD_TIMEOUT,
-                                 workdir=str(work))
+                                 {"lenet": lenet_np, "topk": _topk_cases()},
+                                 timeout=WORLD_TIMEOUT, workdir=str(work))
 
 
 # ---------------------------------------------------------------------------
@@ -662,3 +800,217 @@ def test_ring_bytes_per_rank(world2, codec):
     assert got == quoted
     assert 2 * got == whole
     assert provenance == {"ring_codec": codec, "ring_bytes_per_device": got}
+
+
+@pytest.mark.parametrize("codec", ["delta"])
+def test_delta_ring_bytes_per_rank(world2, lenet_np, codec):
+    """A model-sharded delta ring holds the rank's base slice and the whole
+    sparse rows: ``per_shard_np * 4 + depth * m * 8 + 4`` bytes, as
+    ``ring_provenance`` quotes; not the replicated ring's."""
+    got, quoted, whole, provenance = world2[0][f"ring_bytes_{codec}"]
+    spec_np = 65_536  # LeNet on the (1, 2) layout
+    m = round(0.05 * spec_np)
+    assert got == quoted == spec_np // 2 * 4 + 33 * m * 8 + 4
+    assert whole - got == spec_np // 2 * 4
+    assert provenance == {"ring_codec": codec, "ring_bytes_per_device": got}
+
+
+# ---------------------------------------------------------------------------
+# Slice E2: top_k_across, the delta ring and the population engine on a mesh
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("case", TOPK_CASES)
+def test_top_k_across_matches_lax_top_k(request, world, case):
+    """Values and indices equal ``jax.lax.top_k``'s (ties to the lower
+    index), and the payload rides beside each winner."""
+    jax, jnp = _jax()
+    ranks = (request.getfixturevalue("world2") if world == 2
+             else request.getfixturevalue("world4").ranks)
+    x, k = _topk_cases()[case]
+    want_v, want_i = jax.lax.top_k(jnp.abs(jnp.asarray(x)), k)
+    for r in ranks:
+        v, i, p = r["topk"][case]
+        np.testing.assert_array_equal(i, np.asarray(want_i))
+        assert v.tobytes() == np.asarray(want_v).tobytes()
+        np.testing.assert_array_equal(p, np.take_along_axis(x, i, -1))
+
+
+def _jax_delta(fl_kw):
+    return _jax_engine({**fl_kw, "server_pass_block_n": 256})
+
+
+@pytest.mark.parametrize("density", DELTA_DENSITIES)
+def test_sharded_delta_ring_matches_jax_at_1x2(world2, density):
+    """(1, 2) pads the quadratic model to n_padded 256; JAX's single-device
+    run gets the same 256 from server_pass_block_n = 256, so both keep
+    m = round(density * 256) entries a row. Base refreshes at writes 3, 6."""
+    _assert_runs_close(world2[0][f"engine_delta_{density}_True"],
+                       _jax_delta(_delta_fl(density)))
+
+
+@pytest.mark.parametrize("density", DELTA_DENSITIES)
+def test_sharded_delta_ring_is_the_single_device_ring(world2, world4,
+                                                      density):
+    """Every step of the sharded delta ring (the top-m across ranks, eq. 3
+    on the joined x - base, the refresh) is the single device's bit for bit,
+    so at the same n_padded (256) the (1, 2) and (2, 2) runs equal the
+    port's single-device run exactly."""
+    single = _record(_engine(None, _delta_fl(density,
+                                             server_pass_block_n=256)))
+    _assert_identical(world2[0][f"engine_delta_{density}_True"], single)
+    if density == DELTA_DENSITIES[0]:
+        _assert_identical(world4.ranks[0]["engine_delta"], single)
+
+
+def test_sharded_delta_ring_matches_jax_at_2x2(world4):
+    _assert_runs_close(world4.ranks[0]["engine_delta"],
+                       _jax_delta(_delta_fl()))
+
+
+def test_delta_ring_on_a_data_only_mesh_matches_jax(world2):
+    """(2, 1): whole rows on every rank, n_padded 128 as on one device."""
+    _assert_runs_close(world2[0]["engine_delta_m21"],
+                       _jax_engine(_delta_fl()))
+
+
+@pytest.mark.parametrize("density", DELTA_DENSITIES)
+def test_sharded_delta_ring_equals_replicated_ring(world2, world4, density):
+    _assert_identical(world2[0][f"engine_delta_{density}_False"],
+                      world2[0][f"engine_delta_{density}_True"])
+    if density == DELTA_DENSITIES[0]:
+        _assert_identical(world4.ranks[0]["engine_delta_replicated"],
+                          world4.ranks[0]["engine_delta"])
+
+
+def test_sharded_delta_checkpoint_resumes_bit_identically(world4):
+    r = world4.ranks[0]
+    full = dict(r["engine_delta_full"], num_launches=None)
+    for shard_ring in (True, False):
+        _assert_identical(dict(r[f"engine_delta_resumed_{shard_ring}"],
+                               num_launches=None), full)
+
+
+def test_sharded_delta_checkpoint_loads_into_jax(world4):
+    from repro.checkpoint.ckpt import load_checkpoint
+    from repro.sim.engine import engine_state_from_tree
+
+    flat, step = load_checkpoint(str(world4.work / "engine_delta.npz"))
+    assert step == 3
+    tree, _ = load_checkpoint(str(world4.work / "engine_delta.npz"),
+                              like=_jax_like(flat))
+    state = engine_state_from_tree(tree)
+    ring = state.ring
+    assert state.version == 3 and str(ring["codec"]) == "delta"
+    # the base gathered to the whole (2, 2) layout; the sparse rows as held
+    assert ring["base"].shape == (256,)
+    assert ring["idx"].shape == ring["val"].shape == (
+        QUAD_FL["max_staleness"] + 1, 13)
+    assert int(ring["writes"]) == 3
+
+
+def _port_windows(preset, n, k, t, seed):
+    from repro_torch.sim import get_scenario
+    from repro_torch.sim.population import collect_windows
+
+    return collect_windows(get_scenario(preset), n, TFL(**{
+        **QUAD_FL, "num_clients": n, "buffer_size": k}), t, seed=seed,
+        device="cpu")
+
+
+def _jax_windows(preset, n, k, t, seed):
+    from repro.configs.base import FLConfig as JFL
+    from repro.sim import population as jpop
+    from repro.sim.scenarios import get_scenario as j_scenario
+
+    return jpop.collect_windows(j_scenario(preset), n, JFL(**{
+        **QUAD_FL, "num_clients": n, "buffer_size": k}), t, seed=seed)
+
+
+def _assert_windows_equal(got, want, exact_t=True):
+    for f in ("clients", "tau", "slots"):
+        np.testing.assert_array_equal(got[f], np.asarray(want[f]), f)
+    if exact_t:
+        np.testing.assert_array_equal(got["t"], np.asarray(want["t"]))
+    else:
+        np.testing.assert_allclose(got["t"], np.asarray(want["t"]),
+                                   rtol=1e-5, atol=1e-5)
+    assert got["num_events"] == want["num_events"]
+
+
+@pytest.mark.parametrize("case", list(WINDOW_CASES) + ["m12", "m41"])
+def test_sharded_windows_match_jax_exactly(world2, world4, case):
+    """collect_windows on (2, 1) (and (1, 2), (4, 1)) == the port's single
+    device bit for bit == JAX's single device (cids, tau, slots, events
+    exact; times to JAX's own tolerance, in practice equal)."""
+    args = WINDOW_CASES["bernoulli" if case in ("m12", "m41") else case]
+    got = (world4.ranks[0] if case == "m41" else world2[0])[f"win_{case}"]
+    _assert_windows_equal(got, _port_windows(*args))
+    _assert_windows_equal(got, _jax_windows(*args), exact_t=False)
+
+
+def test_exact_windows_are_taken_and_agreed(world2, world4):
+    """Re-entry and K > N windows run the exact walk on every rank alike;
+    every read that steers a collective is the same on every rank."""
+    for case in ("reentry_paper", "reentry_bernoulli", "k_above_n"):
+        r = world2[0][f"win_{case}"]
+        assert r["exact"] > 0, case
+    assert world2[0]["win_k_above_n"]["exact"] == WINDOW_CASES[
+        "k_above_n"][3]
+    assert world2[0]["win_fast"]["exact"] == 0
+    for ranks in (world2, world4.ranks):
+        for key in [k for k in ranks[0] if k.startswith("win_")]:
+            assert all(r[key]["agreed"] == ranks[0][key]["agreed"]
+                       for r in ranks[1:]), key
+            assert ranks[0][key]["agreed"]["reads"] >= 1
+
+
+@pytest.mark.parametrize("case", ["fast", "fast_drops"])
+def test_fast_windows_gather_no_client_state(world2, case):
+    """A fast window moves one candidate list a rank (K candidates of 12
+    words: key, cid, t, k, drops, base version, batch counter, speed, comm,
+    phase), plus one drop-count sum when the scenario drops; never the
+    (N,) state, and no exact window ran."""
+    preset, n, k, t, _ = WINDOW_CASES[case]
+    r = world2[0][f"win_{case}"]
+    drops = case == "fast_drops"
+    per_window = 2 * k * 12 * 4 + (2 * 4 if drops else 0)
+    assert r["exact"] == 0
+    assert r["collectives"]["calls"] == t * (2 if drops else 1)
+    assert r["collectives"]["bytes"] == t * per_window
+    assert per_window < n * 4  # less than one (N,) f32 field
+
+
+def _jax_population(rounds=8):
+    jax, jnp = _jax()
+    from repro.configs.base import FLConfig as JFL
+    from repro.data.synthetic import ClientDataset as JClientDataset
+    from repro.sim.population import run_population
+    from repro.sim.scenarios import get_scenario as j_scenario
+
+    def loss(params, batch):
+        x, y = batch
+        return jnp.mean((x @ params["w"] - y) ** 2), {}
+
+    return run_population(
+        loss, {"w": jnp.zeros(4)}, _quad_clients(JClientDataset),
+        JFL(**QUAD_FL), total_rounds=rounds,
+        eval_fn=lambda p: {"wnorm": float(jnp.sum(p["w"] ** 2))},
+        eval_every=2, scenario=j_scenario("dropout-bernoulli"), seed=0)
+
+
+@pytest.mark.parametrize("case", ["pop_m21", "pop_m22", "pop_m41"])
+def test_sharded_population_matches_jax(world2, world4, case):
+    """run_population on (2, 1) and (2, 2) (the (N,) state split over data)
+    and (4, 1) (6 clients do not divide 4: replicated) against JAX's single
+    device: windows exact, weights and history at TOL."""
+    r = (world2[0] if case == "pop_m21" else world4.ranks[0])[case]
+    got = r["full"] if case != "pop_m41" else r
+    _assert_runs_close(got, _jax_population())
+
+
+@pytest.mark.parametrize("case", ["pop_m21", "pop_m22"])
+def test_sharded_population_resumes_bit_identically(world2, world4, case):
+    r = (world2[0] if case == "pop_m21" else world4.ranks[0])[case]
+    _assert_identical(r["resumed"], r["full"])
