@@ -9,7 +9,8 @@ Phases, in order; any failure raises and exits non-zero:
    is switched off for cuDNN convolutions and for matmuls.
 2. Build: compile ``src/repro_torch/csrc/{weighted_agg,ring_codec,
    flash_attn,ssm_scan}.cu`` for sm_90a, the four nvcc runs at once; print
-   ptxas's registers, shared memory and spills of the instances of K1-K6,
+   ptxas's registers, shared memory and spills of the instances of K1-K6
+   (K5 at D = 32, 64, 128, 160, 256),
    and the co-resident blocks that bound the cooperative grids of K1 and
    K4 (one launch each, with a grid-wide barrier inside).
 3. Kernel phases: K1 (fused server pass), K2 (squared distances) and K3
@@ -153,11 +154,33 @@ Phases, in order; any failure raises and exits non-zero:
    against the full forward at 4 layers, f32, S=1536 (the 1024-slot ring
    cache wraps); ``launch/serve.py`` at full depth (batch 4, prompt 32,
    gen 16).
+9. Slice F2, the serving path of the other archs (bf16 unless named):
+   (f) K5 at the seven archs' prefill shapes (deepseek-moe-16b D=128,
+   stablelm-12b D=160, gemma-7b D=256, pixtral-12b S=4352, qwen1.5-110b
+   H=64/8, arctic-480b H=56/8, whisper-tiny S=448) in bf16 and f32 against
+   its plain version, timed per call and as a burst beside its bound and
+   SDPA (causal, GQA); (a) deepseek-moe-16b at full width and depth: init
+   on the card (its peak below params + one layer), ``prefill_logits`` at
+   B=2, S=4096 (28 K5 launches and no other kernel's, finite logits,
+   tokens/s, peak memory), the share of token-choices dropped per layer at
+   cf 1.25 and a profile of one prefill; (b) each new arch on the card
+   against the CPU at full width, 1-2 layers, S=256, f32 and bf16 (the MoE
+   archs and qwen1.5-110b layer by layer on one input shared by both
+   sides: the MoE's routing compared first, a flip allowed only at a
+   near-tie, then its combine under the card's routing); (c) decode
+   against the full forward, f32: deepseek-moe-16b at 2 layers (dropless)
+   and whisper-tiny at full size through ``prefill_cross``; (d)
+   ``serve.py`` at full depth for deepseek-moe-16b and whisper-tiny; (e)
+   ``prefill_logits`` at full width: pixtral-12b, stablelm-12b and gemma-7b
+   at full depth, qwen1.5-110b at 2 layers and arctic-480b at 1 (the card
+   holds neither whole), whisper-tiny at S=448; K5 launches = layers. Each
+   model is freed before the next, and the card's allocated memory must
+   return to where it was.
 
 The last two lines of standard output are the kernels' JSON record (with
-each kernel's launches in the cohort runs, in the population runs and a
-rank in each Slice E run beside the main path's) and
-``{"ok": true, "device": {...}}``.
+each kernel's launches in the cohort runs, in the population runs, a rank
+in each Slice E run and the Slice F2 prefill beside the main path's; K5's
+record lists its F2 shapes) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2222,6 +2245,422 @@ def slice_e2_checks(np, w12, w21, w22, refs, out, card: str) -> None:
     print(f"  Slice E2 checks ({card}): {out['e2_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Slice F2: the serving path of the other architectures
+# ---------------------------------------------------------------------------
+
+F2_B, F2_S = 2, 4096  # the prefill shape of every F2 row
+DEEPSEEK_PARAMS = 16_879_568_896  # tests/test_torch_lm.py pins it to JAX
+# K5's shapes on the F2 prefills: (arch, B, S, H, Hkv, D); pixtral's S is
+# its 256 patches + 4096 tokens, whisper-tiny's its decoder's 448 positions
+F2_ATTN = (("deepseek-moe-16b", 2, 4096, 16, 16, 128),
+           ("stablelm-12b", 2, 4096, 32, 8, 160),
+           ("gemma-7b", 2, 4096, 16, 16, 256),
+           ("pixtral-12b", 2, 4352, 32, 8, 128),
+           ("qwen1.5-110b", 2, 4096, 64, 8, 128),
+           ("arctic-480b", 2, 4096, 56, 8, 128),
+           ("whisper-tiny", 2, 448, 6, 6, 64))
+# (e): prefill_logits at full width, B = 2: (arch, depth, S); depth None =
+# full, else the cut; whisper-tiny at its decoder's 448 positions
+F2_PREFILLS = (("pixtral-12b", None, 4096), ("stablelm-12b", None, 4096),
+               ("gemma-7b", None, 4096), ("qwen1.5-110b", 2, 4096),
+               ("arctic-480b", 1, 4096), ("whisper-tiny", None, 448))
+# (b): card against CPU at full width, B = 1, S = 256 (pixtral: + its 256
+# patches). "model": prefill_logits. "layers": each layer on one input
+# shared by card and CPU (the card's output feeds the next layer), the MoE
+# routed on both sides and then combined under the card's routing; for the
+# configs whose embedding and head alone pass 8 GB in f32 on the CPU
+# (qwen1.5-110b), or whose one layer does (arctic-480b: 128 experts, 54 GB;
+# cut to 8 experts for this check only)
+F2_CPU_S = 256
+F2_CPU = (("deepseek-moe-16b", dict(num_layers=2), "layers"),
+          ("arctic-480b", dict(num_layers=1, num_experts=8), "layers"),
+          ("qwen1.5-110b", dict(num_layers=1), "layers"),
+          ("whisper-tiny", {}, "model"),
+          ("pixtral-12b", dict(num_layers=1), "model"),
+          ("stablelm-12b", dict(num_layers=2), "model"),
+          ("gemma-7b", dict(num_layers=2), "model"))
+# a routing flip between card and CPU is a near-tie when a margin between
+# neighbouring router probabilities among the first k + 1 is below this: the
+# router sees the same input on both sides (f32 logits from cuBLAS vs the
+# CPU's matmul), so its probabilities differ by f32 rounding alone
+ROUTE_TIE = 1e-5
+F2_DECODE_S = 64
+F2_MEM_SLACK = 64 << 20  # device bytes a freed model may leave behind
+
+
+def f2_batch(torch, cfg, b: int, s: int, dtype, seed: int):
+    """tokens (and patches / frames) for ``cfg`` on the card, from a seed."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                                     generator=g)}
+    if cfg.num_patches:
+        batch["patches"] = torch.randn(b, cfg.num_patches, cfg.d_model,
+                                       device="cuda", generator=g).to(dtype)
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(b, cfg.encoder_seq_len, cfg.d_model,
+                                      device="cuda", generator=g)
+    return batch
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def freed(torch, base: int, what: str) -> None:
+    """After ``del``: the card's allocated memory is back near ``base``."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    now = torch.cuda.memory_allocated()
+    check(now - base <= F2_MEM_SLACK,
+          f"{what}: {now - base:,d} B still allocated after freeing")
+
+
+def flash_wide_phase(torch, fa_ops, fa_ref, rate: float):
+    """K5 at the F2 prefills' shapes, bf16 and f32, against its plain
+    version, beside its bound and SDPA (causal, GQA); returns records by
+    (arch, dtype)."""
+    F = torch.nn.functional
+    records = {}
+    for arch, b, s, h, hkv, d in F2_ATTN:
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            g = torch.Generator(device="cuda").manual_seed(s + h + d)
+            q, k, v = (torch.randn(b, s, n, d, device="cuda", generator=g)
+                       .to(dtype) for n in (h, hkv, hkv))
+            out = fa_ops.flash_attention(q, k, v)
+            check(torch.equal(out, fa_ops.flash_attention(q, k, v)),
+                  f"K5 not bit-identical at {arch} {dtype_name}")
+            want = fa_ref.flash_attention_ref(q, k, v)
+            rtol, atol = ATTN_TOL[dtype_name]
+            err = float((out.float() - want.float()).abs().max())
+            check(torch.allclose(out.float(), want.float(), rtol=rtol,
+                                 atol=atol),
+                  f"K5 vs plain at {arch} D={d} {dtype_name}: {err}")
+            del want
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+
+            flops = 4 * d * attn_pairs(s, 0) * b * h
+            nbytes = (2 * b * s * h + 2 * b * s * hkv) * d * q.element_size()
+            bytes_ms = nbytes / rate * 1e3
+            ops_ms = flops / (BF16_FLOPS if dtype == torch.bfloat16
+                              else F32_FLOPS) * 1e3
+            r = dict(arch=arch, shape=[b, s, h, hkv, d], dtype=dtype_name,
+                     ms=time_ms(torch, lambda: fa_ops.flash_attention(q, k, v),
+                                reps=5, warmup=1),
+                     burst_ms=time_burst(torch, lambda: fa_ops.flash_attention(
+                         q, k, v), n=10, warmup=1),
+                     plain_ms=time_ms(torch, lambda: fa_ref.flash_attention_ref(
+                         q, k, v), reps=2, warmup=1),
+                     library_ms=time_ms(torch, library, reps=5, warmup=1),
+                     max_abs_err=err, bound_ms=max(bytes_ms, ops_ms),
+                     bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            print(f"  flash_attention {arch:16s} B={b} S={s} H={h} Hkv={hkv} "
+                  f"D={d} {dtype_name:8s}: kernel {r['ms']:.4f} ms (burst "
+                  f"{r['burst_ms']:.4f})  plain {r['plain_ms']:.4f} ms  SDPA "
+                  f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}, {flops / 1e9:.2f} GFLOP)  max_abs_err "
+                  f"{err:.3g}")
+            records[(arch, dtype_name)] = r
+            del q, k, v, out, qt, kt, vt
+            torch.cuda.empty_cache()
+    return records
+
+
+def route_flips(torch, cfg, probs_cpu, ids_card, ids_cpu):
+    """(flips, choices, unexplained): rows whose expert ids differ between
+    card and CPU, and those of them with no near-tie (``ROUTE_TIE``) among
+    the CPU's first k + 1 sorted probabilities."""
+    k = cfg.experts_per_token
+    rows = (ids_card.cpu() != ids_cpu).any(-1)
+    top = torch.sort(probs_cpu[rows], dim=-1, descending=True).values
+    gaps = (top[:, :k] - top[:, 1:k + 1]).amin(-1)
+    return int(rows.sum()), ids_cpu.numel(), int((gaps >= ROUTE_TIE).sum())
+
+
+def layers_card_vs_cpu(torch, cfg, blocks, moe, apply_norm, apply_mlp, Init,
+                       seed: int):
+    """Each layer of a ``num_layers`` stack at full width on one input
+    shared by card and CPU. Returns (worst error over the output's largest
+    |x|, flips, choices)."""
+    dtype = getattr(torch, cfg.compute_dtype)
+    stack = blocks.init_stack(Init(torch.Generator(device="cuda").manual_seed(
+        seed), torch.device("cuda")), cfg, cfg.num_layers)
+    cpu_stack = to_cpu(stack)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    x = torch.randn(1, F2_CPU_S, cfg.d_model, device="cuda",
+                    generator=g).to(dtype)
+    worst, flips, choices = 0.0, 0, 0
+    d = cfg.d_model
+
+    def rel(a, b):
+        return float((a.cpu().float() - b.float()).abs().max()) / \
+            float(b.float().abs().max())
+
+    with torch.no_grad():
+        for i in range(cfg.num_layers):
+            p, pc = blocks.layer_view(stack, i), blocks.layer_view(cpu_stack, i)
+            h = blocks._mixer_train(cfg, p, x, None)
+            worst = max(worst, rel(h, blocks._mixer_train(cfg, pc, x.cpu(),
+                                                          None)))
+            hn = apply_norm(cfg, p["norm2"], h)
+            hnc = hn.cpu()
+            if cfg.is_moe:
+                xf, xfc = hn.reshape(-1, d), hnc.reshape(-1, d)
+                _, gates, ids = moe.route(cfg, p["moe"], xf)
+                probs_c, _, ids_c = moe.route(cfg, pc["moe"], xfc)
+                n, c, bad = route_flips(torch, cfg, probs_c, ids, ids_c)
+                check(bad == 0, f"{cfg.name} layer {i}: {bad} of {n} routing "
+                      f"flips are not near-ties")
+                flips, choices = flips + n, choices + c
+                cap = moe.capacity(cfg, xf.shape[0], cfg.moe_capacity_factor)
+                y = moe.dispatch_combine(cfg, p["moe"], xf, gates, ids, cap)
+                yc = moe.dispatch_combine(cfg, pc["moe"], xfc, gates.cpu(),
+                                          ids.cpu(), cap)
+                if cfg.num_shared_experts:
+                    y = y + moe.shared_ffn(p["moe"], xf)
+                    yc = yc + moe.shared_ffn(pc["moe"], xfc)
+                y, yc = y.reshape(hn.shape), yc.reshape(hnc.shape)
+                if cfg.dense_residual_ff:
+                    y = y + apply_mlp(cfg, p["mlp"], hn)
+                    yc = yc + apply_mlp(cfg, pc["mlp"], hnc)
+            else:
+                y, yc = apply_mlp(cfg, p["mlp"], hn), apply_mlp(cfg, pc["mlp"],
+                                                                hnc)
+            worst = max(worst, rel(h + y, h.cpu() + yc))
+            x = h + y
+    return worst, flips, choices
+
+
+def slice_f2_phase(torch, np, kernel_ops, fa_ref, serve, get_arch, Model,
+                   rate: float, card: str):
+    """Slice F2: the serving path of deepseek-moe-16b, arctic-480b,
+    whisper-tiny, pixtral-12b, stablelm-12b, gemma-7b and qwen1.5-110b."""
+    from repro_torch.models import blocks
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Init, apply_mlp, apply_norm
+
+    ops, rc_ops, fa_ops, ss_ops = kernel_ops
+    out = {}
+
+    def reset():
+        for o in (ops, rc_ops, fa_ops, ss_ops):
+            o.reset_launches()
+
+    def launches():
+        return {"fused_server": ops.server_update.launches,
+                "sq_dists": ops.sq_dists.launches,
+                "weighted_sum": ops.weighted_sum.launches,
+                "int8_sq_dists": rc_ops.int8_sq_dists.launches,
+                "flash_attention": fa_ops.flash_attention.launches,
+                "selective_scan": ss_ops.selective_scan.launches}
+
+    # (f) K5 at the new shapes, before any model takes the card's memory
+    t = time.perf_counter()
+    print("  (f) K5 at the F2 prefill shapes (median of 5 calls; burst of 10):")
+    out["attn"] = flash_wide_phase(torch, fa_ops, fa_ref, rate)
+    print(f"  (f): {time.perf_counter() - t:.1f} s")
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+
+    # (a) deepseek-moe-16b at full width and depth, bf16
+    t = time.perf_counter()
+    cfg = get_arch("deepseek-moe-16b").model
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    init_peak = torch.cuda.max_memory_allocated() - base
+    n_params = model.param_count(params)
+    p_bytes = tree_bytes(params)
+    layer_bytes = tree_bytes(params["layers"]) // cfg.num_layers
+    check(n_params == DEEPSEEK_PARAMS, f"deepseek param count {n_params}")
+    print(f"  (a) deepseek-moe-16b init on the card: {n_params:,d} params "
+          f"({p_bytes / 2**30:.2f} GiB), {init_s:.2f} s; init peak "
+          f"{init_peak / 2**30:.3f} GiB (limit params + one layer = "
+          f"{(p_bytes + layer_bytes) / 2**30:.3f} GiB)")
+    check(init_peak < p_bytes + layer_bytes, f"init peak {init_peak:,d} B")
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (F2_B, F2_S))).cuda()}
+    toks = F2_B * F2_S
+    with torch.no_grad():
+        model.prefill_logits(params, batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        logits = model.prefill_logits(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = [time.perf_counter() - t0]
+        counts = launches()
+        peak = torch.cuda.max_memory_allocated() - base
+        for _ in range(2):
+            t0 = time.perf_counter()
+            model.prefill_logits(params, batch)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+        # the share of token-choices dropped at cf 1.25, per layer
+        shares, plan = [], moe.dispatch_plan
+
+        def spy(cfg_, ids, cap):
+            got = plan(cfg_, ids, cap)
+            shares.append((~got.keep).float().mean())
+            return got
+
+        moe.dispatch_plan = spy
+        try:
+            model.prefill_logits(params, batch)
+        finally:
+            moe.dispatch_plan = plan
+        shares = [float(x) for x in shares]
+    check(counts == {"fused_server": 0, "sq_dists": 0, "weighted_sum": 0,
+                     "int8_sq_dists": 0, "flash_attention": cfg.num_layers,
+                     "selective_scan": 0},
+          f"deepseek prefill launches {counts}")
+    check(tuple(logits.shape) == (F2_B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "deepseek prefill logits")
+    check(len(shares) == cfg.num_layers, f"{len(shares)} dispatches")
+    out["deepseek"] = dict(prefill_s=prefill_s, peak=peak, counts=counts,
+                           drop_shares=shares, init_peak=init_peak)
+    print(f"  prefill_logits B={F2_B} S={F2_S}, 28 layers, bf16: "
+          f"{', '.join(f'{x:.4f}' for x in prefill_s)} s -> "
+          f"{', '.join(f'{toks / x:,.0f}' for x in prefill_s)} tokens/s; "
+          f"peak {peak / 2**30:.2f} GiB; launches {counts}")
+    print(f"  token-choices dropped at cf {cfg.moe_capacity_factor}, per "
+          f"layer: {', '.join(f'{x:.4f}' for x in shares)} (mean "
+          f"{sum(shares) / len(shares):.4f})")
+    out["profile"] = profile_prefill(torch, model, params, batch)
+    del model, params, logits, batch
+    freed(torch, base, "deepseek-moe-16b")
+    print(f"  (a): {time.perf_counter() - t:.1f} s")
+
+    # (b) card against CPU at full width
+    t = time.perf_counter()
+    out["cpu"] = {}
+    for arch, cut, how in F2_CPU:
+        for dtype in ("float32", "bfloat16"):
+            cfg2 = get_arch(arch).model.replace(param_dtype=dtype,
+                                                compute_dtype=dtype, **cut)
+            t1 = time.perf_counter()
+            if how == "layers":
+                err, flips, choices = layers_card_vs_cpu(
+                    torch, cfg2, blocks, moe, apply_norm, apply_mlp, Init,
+                    seed=len(arch))
+                note = (f", routing flips {flips} of {choices} token rows "
+                        f"(all near-ties)") if cfg2.is_moe else ""
+            else:
+                m2 = Model(cfg2, device="cuda")
+                p2 = m2.init(torch.Generator(device="cuda").manual_seed(1))
+                b2 = f2_batch(torch, cfg2, 1, F2_CPU_S, getattr(torch, dtype),
+                              seed=3)
+                with torch.no_grad():
+                    got = m2.prefill_logits(p2, b2)
+                    want = Model(cfg2, device="cpu").prefill_logits(
+                        to_cpu(p2), to_cpu(b2))
+                err = float((got.cpu().float() - want.float()).abs().max()) \
+                    / float(want.float().abs().max())
+                flips, note = 0, ""
+                del m2, p2, b2, got, want
+            out["cpu"][(arch, dtype)] = dict(err=err, flips=flips)
+            print(f"  (b) {arch} {how} {cut or 'full'} {dtype}: max abs diff "
+                  f"{err:.3g} of the largest |output| (limit "
+                  f"{LOGIT_TOL[dtype]}){note}; {time.perf_counter() - t1:.1f} s")
+            check(err <= LOGIT_TOL[dtype], f"{arch} card vs CPU {dtype}: {err}")
+            freed(torch, base, f"{arch} card vs CPU")
+    print(f"  (b): {time.perf_counter() - t:.1f} s")
+
+    # (c) decode against the full forward, f32
+    t = time.perf_counter()
+    ds = get_arch("deepseek-moe-16b").model
+    for arch, cfg3 in (
+            ("deepseek-moe-16b", ds.replace(
+                num_layers=2, param_dtype="float32", compute_dtype="float32",
+                moe_capacity_factor=ds.num_experts / ds.experts_per_token)),
+            ("whisper-tiny", get_arch("whisper-tiny").model.replace(
+                param_dtype="float32", compute_dtype="float32"))):
+        m3 = Model(cfg3, device="cuda")
+        p3 = m3.init(torch.Generator(device="cuda").manual_seed(2))
+        b3 = f2_batch(torch, cfg3, 1, F2_DECODE_S, torch.float32, seed=4)
+        with torch.no_grad():
+            full, _ = m3.apply(p3, b3)
+            cache = m3.init_cache(1, F2_DECODE_S)
+            if cfg3.is_encdec:
+                cache = m3.prefill_cross(p3, cache, b3["frames"])
+            errs = []
+            for i in range(F2_DECODE_S):
+                lg, cache = m3.decode_step(p3, cache,
+                                           b3["tokens"][:, i:i + 1], i)
+                errs.append((lg[:, 0] - full[:, i]).abs().max())
+            err = float(torch.stack(errs).max())
+        scale = float(full.abs().max())
+        print(f"  (c) decode vs forward, {arch} {cfg3.num_layers} layers, f32,"
+              f" S={F2_DECODE_S}: max abs diff {err:.4g} of max |logit| "
+              f"{scale:.4g} (limit {DECODE_TOL} x max)")
+        check(err <= DECODE_TOL * scale, f"{arch} decode vs forward: {err}")
+        del m3, p3, b3, full, cache
+        freed(torch, base, f"{arch} decode")
+    print(f"  (c): {time.perf_counter() - t:.1f} s")
+
+    # (d) the serving launcher at full depth, JAX's defaults
+    t = time.perf_counter()
+    out["serve"] = {}
+    for arch in ("deepseek-moe-16b", "whisper-tiny"):
+        res = serve.main(["--arch", arch, "--device", "cuda"])
+        ids = res["tokens"]
+        vocab = get_arch(arch).model.vocab_size
+        check(ids.shape == (4, 17) and ids.min() >= 0 and ids.max() < vocab,
+              f"{arch} served ids {ids.shape}")
+        out["serve"][arch] = res["decode_tok_s"]
+        print(f"  (d) serve.py {arch} (batch 4, prompt 32, gen 16): prefill "
+              f"{res['prefill_s']:.4f} s, decode {res['decode_tok_s']:.2f} "
+              f"tokens/s")
+        del res
+        freed(torch, base, f"{arch} serve")
+    print(f"  (d): {time.perf_counter() - t:.1f} s")
+
+    # (e) prefill_logits at full width, bf16
+    t = time.perf_counter()
+    out["prefill"] = {}
+    for arch, depth, s5 in F2_PREFILLS:
+        cfg5 = get_arch(arch).model
+        if depth:
+            cfg5 = cfg5.replace(num_layers=depth)
+        m5 = Model(cfg5, device="cuda")
+        p5 = m5.init(torch.Generator(device="cuda").manual_seed(5))
+        b5 = f2_batch(torch, cfg5, F2_B, s5, torch.bfloat16, seed=6)
+        with torch.no_grad():
+            m5.prefill_logits(p5, b5)  # warm-up
+            torch.cuda.synchronize()
+            reset()
+            t0 = time.perf_counter()
+            lg = m5.prefill_logits(p5, b5)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        n5 = fa_ops.flash_attention.launches
+        check(n5 == cfg5.num_layers and bool(torch.isfinite(lg).all())
+              and tuple(lg.shape) == (F2_B, 1, cfg5.vocab_size),
+              f"{arch} prefill: {n5} K5 launches, logits {tuple(lg.shape)}")
+        out["prefill"][arch] = dict(s=sec, layers=cfg5.num_layers,
+                                    launches=n5)
+        cut = f" (reduced: {get_arch(arch).model.num_layers} -> {depth})" \
+            if depth else ""
+        print(f"  (e) {arch} prefill_logits B={F2_B} S={s5}, "
+              f"{cfg5.num_layers} layers{cut}: {sec:.4f} s -> "
+              f"{F2_B * s5 / sec:,.0f} tokens/s; K5 launches {n5}")
+        del m5, p5, b5, lg
+        freed(torch, base, f"{arch} prefill")
+    print(f"  (e): {time.perf_counter() - t:.1f} s")
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -2657,6 +3096,22 @@ def main() -> int:
                   f"{k6['burst_ms']:.4f} ms)")
     print(f"  phase: {time.perf_counter() - t:.1f} s")
 
+    # 8b. Slice F2: the serving path of the other architectures
+    t = time.perf_counter()
+    print(f"Slice F2 ({card}): deepseek-moe-16b, arctic-480b, whisper-tiny, "
+          f"pixtral-12b, stablelm-12b, gemma-7b, qwen1.5-110b")
+    f2 = slice_f2_phase(torch, np, (ops, rc_ops, fa_ops, ss_ops), fa_ref,
+                        serve, get_arch, Model, rate, card)
+    ds = f2["deepseek"]
+    print(f"  Slice F2 numbers ({card}): deepseek-moe-16b prefill "
+          f"{F2_B * F2_S / min(ds['prefill_s']):,.0f} tokens/s at best, peak "
+          f"{ds['peak'] / 2**30:.2f} GiB, init peak "
+          f"{ds['init_peak'] / 2**30:.2f} GiB, dropped "
+          f"{sum(ds['drop_shares']) / len(ds['drop_shares']):.4f} of "
+          f"token-choices; decode tokens/s "
+          + ", ".join(f"{k} {v:.2f}" for k, v in f2["serve"].items()))
+    print(f"  phase: {time.perf_counter() - t:.1f} s")
+
     # 9. records
     launches = {"fused_server": fused_counts["fused_server"],
                 "sq_dists": batched_counts["sq_dists"],
@@ -2682,7 +3137,15 @@ def main() -> int:
             "population_launches": slice_d["launches"][name_k],
             "slice_e_launches_per_rank": {
                 key: counts.get(name_k, 0)
-                for key, counts in slice_e["launches"].items()}})
+                for key, counts in slice_e["launches"].items()},
+            "slice_f2_launches": ds["counts"][name_k]})
+        if name_k == "flash_attention":
+            kernels[-1]["f2_shapes"] = [
+                dict(r, prefill_launches=(ds["counts"][name_k]
+                                          if r["arch"] == "deepseek-moe-16b"
+                                          else f2["prefill"].get(
+                                              r["arch"], {}).get("launches")))
+                for r in f2["attn"].values()]
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

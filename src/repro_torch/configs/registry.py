@@ -1,9 +1,7 @@
 """Architecture registry of the port: ``get_arch(id)`` / ``list_archs()``.
 
-IDs match the JAX package's registry. Only the architectures whose every
-branch the port runs are listed (and ``lenet``, the paper's own backbone);
-any other id of the JAX package raises ``KeyError`` naming the ROADMAP
-slice that brings it.
+IDs and their order match the JAX package's registry (``--arch <id>`` in
+the launchers).
 """
 from __future__ import annotations
 
@@ -13,9 +11,16 @@ from typing import Dict, List
 from repro_torch.configs.base import ArchConfig
 
 _MODULES: Dict[str, str] = {
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
     "hymba-1.5b": "repro_torch.configs.hymba_1p5b",
+    "qwen1.5-110b": "repro_torch.configs.qwen15_110b",
+    "pixtral-12b": "repro_torch.configs.pixtral_12b",
+    "gemma-7b": "repro_torch.configs.gemma_7b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "qwen3-1.7b": "repro_torch.configs.qwen3_1p7b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
     # paper's own experiment backbone (not in the assigned pool)
     "lenet": "repro_torch.configs.lenet_fmnist",
 }
@@ -25,10 +30,7 @@ ASSIGNED_ARCHS: List[str] = [k for k in _MODULES if k != "lenet"]
 
 def get_arch(arch_id: str) -> ArchConfig:
     if arch_id not in _MODULES:
-        raise KeyError(
-            f"arch {arch_id!r} is not ported; ported: {sorted(_MODULES)}. "
-            "The rest of the JAX package's registry (MoE, encoder-decoder, "
-            "VLM and the other dense archs) comes with ROADMAP Slice F")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(_MODULES[arch_id])
     return mod.CONFIG
 

@@ -56,10 +56,15 @@
 // card). The tensor-core work is therefore 1.5x the 4 * D FLOP per
 // visible pair of the bound, on 64 x 64 tiles of the band.
 // Shared tiles use the swizzle that TMA writes and the wgmma descriptors
-// read: 128-byte for rows of 64 bf16 (D = 64; D = 128 as two 64-column
-// panels), 64-byte for D = 32. The band skip is per tile: the CTA walks only
-// the kv tiles of [q0 - window + 1, q0 + 127] (18 of 64 at window 1024, S =
-// 4096), and a warpgroup skips the products of a tile none of its rows can
+// read: 128-byte for rows of 64 bf16 (D = 64; D = 128 and 256 as two and
+// four 64-column panels), 64-byte for rows of 32 (D = 32; D = 160 as five
+// 32-column panels). At D = 160 and 256, P V is one wgmma per panel (n32 or
+// n64) on that panel's slice of the accumulator. D = 256 runs one consumer
+// warpgroup (64 query rows a CTA, 160 threads, so up to 255 registers a
+// thread for its 128-register accumulator) and 3 stages (225 KB of shared
+// memory); D = 160 two consumers and 4 stages (201 KB). The band skip is
+// per tile: the CTA walks only the kv tiles of [q0 - window + 1, q0 + rows
+// - 1] (18 of 64 at window 1024, S = 4096, D = 64), and a warpgroup skips the products of a tile none of its rows can
 // see. Query tiles run longest-first (the grid's slowest axis walks them in
 // reverse), so a causal triangle's long tiles do not form the tail. No
 // atomics: launches are bit-identical.
@@ -74,9 +79,11 @@
 // exp(s_j - m_new) : 0; alpha = exp(m - m_new); l = alpha * l + sum_j p_j;
 // acc = acc * alpha + sum_j p_j v_j; at the end o = acc / max(l, 1e-20).
 //
-// Both: D in {32, 64, 128} (the f32 instance holds a q row in registers and
-// spills part of it at D = 128); ragged S is masked in-kernel (rows past S
-// are never visible and never written).
+// Both: D in {32, 64, 128, 160, 256} (the f32 instance holds a q row and
+// its accumulator in registers and spills part of them from D = 128 on; its
+// K/V tiles are 64, 32 and 16 rows at D <= 64, D <= 160 and D = 256, to stay
+// in 48 KB of static shared memory); ragged S is masked in-kernel (rows past
+// S are never visible and never written).
 //
 // Interface: plain C, loaded with ctypes. fa_forward launches on the stream
 // it is given, allocates nothing and returns cudaGetLastError() (or the
@@ -105,7 +112,9 @@ constexpr float kNegInf = -1e30f;
 
 template <int D>
 struct KvTile {
-  static constexpr int kRows = D <= 64 ? 64 : 32;  // K and V tiles: 32 KB
+  // K and V tiles: 32 KB at D <= 128, 40 KB at D = 160, 32 KB at D = 256,
+  // within the 48 KB of static shared memory
+  static constexpr int kRows = D <= 64 ? 64 : D <= 160 ? 32 : 16;
 };
 
 template <int D>
@@ -214,23 +223,29 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---- bf16: tensor-core instance -------------------------------------------
 
 constexpr int kRowsWg = 64;                      // query rows per warpgroup
-constexpr int kConsumers = 2;                    // consumer warpgroups
-constexpr int kRowsCta = kRowsWg * kConsumers;   // query rows per CTA
 constexpr int kKeys = 64;                        // keys per kv tile (Bc)
-constexpr int kStages = 4;                       // K/V ring depth
-constexpr int kThreads = kConsumers * 128 + 32;  // + one producer warp
 constexpr float kLog2e = 1.4426950408889634f;
 
+// D = 256 takes one consumer warpgroup and 3 stages: its accumulator is 128
+// f32 registers a thread, which two consumers (288 threads, at most 224
+// registers each) would spill, and two warpgroups' q (64 KB) leave room for
+// 2 stages only.
 template <int D>
 struct Sm90 {
-  static constexpr int kPanelCols = D < 64 ? D : 64;      // columns per swizzle row
+  static constexpr int kPanelCols = D % 64 == 0 ? 64 : 32;  // columns per swizzle row
   static constexpr int kPanels = D / kPanelCols;
   static constexpr int kRowBytes = kPanelCols * 2;        // 128 or 64
   static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 1 : 2;  // descriptor
+  static constexpr int kConsumers = D > 160 ? 1 : 2;      // consumer warpgroups
+  static constexpr int kStages = D > 160 ? 3 : 4;         // K/V ring depth
+  static constexpr int kRowsCta = kRowsWg * kConsumers;   // query rows per CTA
+  static constexpr int kThreads = kConsumers * 128 + 32;  // + one producer warp
   static constexpr int kQBytes = kRowsWg * D * 2;         // one warpgroup's q
   static constexpr int kTileBytes = kKeys * D * 2;        // one K or V tile
   static constexpr int kSmem = 1024 /* alignment slack */ + kConsumers * kQBytes +
                                2 * kStages * kTileBytes + (2 * kStages + 1) * 8;
+  static_assert(D % kPanelCols == 0, "D must be whole panels");
+  static_assert(kSmem <= 232448, "above the 227 KB a CTA may have");
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -276,7 +291,10 @@ __device__ __forceinline__ void mma_scores(float (&sc)[kKeys / 2], uint32_t q_ad
 }
 
 // O += P V for one warpgroup, P = P_hi + P_lo, over the tile's keys in steps
-// of 16; V is read MN-major.
+// of 16; V is read MN-major. Up to D = 128 one wgmma spans D (its leading
+// byte offset steps between panels); above, one wgmma per panel, each on
+// its slice of the accumulator: the fragment of an n-wide product is the
+// fragments of its panels side by side, so the slices need no reordering.
 template <int D>
 __device__ __forceinline__ void mma_pv(float (&acc)[D / 2],
                                          const uint32_t (&p_hi)[kKeys / 4],
@@ -285,13 +303,28 @@ __device__ __forceinline__ void mma_pv(float (&acc)[D / 2],
   using C = Sm90<D>;
 #pragma unroll
   for (int kk = 0; kk < kKeys / 16; ++kk) {
-    const uint64_t dv = hopper::gmma_desc(v_addr + kk * 16 * C::kRowBytes,
-                                          kKeys * C::kRowBytes, 8 * C::kRowBytes,
-                                          C::kSwizzle);
-    hopper::wgmma_rs(acc, p_hi[4 * kk], p_hi[4 * kk + 1], p_hi[4 * kk + 2],
-                     p_hi[4 * kk + 3], dv, 1);
-    hopper::wgmma_rs(acc, p_lo[4 * kk], p_lo[4 * kk + 1], p_lo[4 * kk + 2],
-                     p_lo[4 * kk + 3], dv, 1);
+    if constexpr (D <= 128) {
+      const uint64_t dv = hopper::gmma_desc(v_addr + kk * 16 * C::kRowBytes,
+                                            kKeys * C::kRowBytes, 8 * C::kRowBytes,
+                                            C::kSwizzle);
+      hopper::wgmma_rs(acc, p_hi[4 * kk], p_hi[4 * kk + 1], p_hi[4 * kk + 2],
+                       p_hi[4 * kk + 3], dv, 1);
+      hopper::wgmma_rs(acc, p_lo[4 * kk], p_lo[4 * kk + 1], p_lo[4 * kk + 2],
+                       p_lo[4 * kk + 3], dv, 1);
+    } else {
+#pragma unroll
+      for (int p = 0; p < C::kPanels; ++p) {
+        float(&part)[C::kPanelCols / 2] =
+            *reinterpret_cast<float(*)[C::kPanelCols / 2]>(&acc[p * C::kPanelCols / 2]);
+        const uint64_t dv = hopper::gmma_desc(
+            v_addr + (p * kKeys + kk * 16) * C::kRowBytes, kKeys * C::kRowBytes,
+            8 * C::kRowBytes, C::kSwizzle);
+        hopper::wgmma_rs(part, p_hi[4 * kk], p_hi[4 * kk + 1], p_hi[4 * kk + 2],
+                         p_hi[4 * kk + 3], dv, 1);
+        hopper::wgmma_rs(part, p_lo[4 * kk], p_lo[4 * kk + 1], p_lo[4 * kk + 2],
+                         p_lo[4 * kk + 3], dv, 1);
+      }
+    }
   }
 }
 
@@ -367,7 +400,7 @@ __device__ __forceinline__ void split_p(const float (&sc)[N], uint32_t (&p_hi)[N
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Sm90<D>::kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v,
@@ -375,6 +408,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                int causal, int window, float scale_log2) {
   using C = Sm90<D>;
   using namespace hopper;
+  constexpr int kConsumers = C::kConsumers;
+  constexpr int kStages = C::kStages;
+  constexpr int kRowsCta = C::kRowsCta;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // the swizzle patterns repeat every 1024 bytes of the shared address
   uint8_t* sq = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -610,14 +646,15 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
       flash_fwd_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)heads, (unsigned)batch,
-                  (unsigned)((seq + kRowsCta - 1) / kRowsCta));
-  flash_fwd_sm90<D><<<grid, kThreads, C::kSmem, stream>>>(
+                  (unsigned)((seq + C::kRowsCta - 1) / C::kRowsCta));
+  flash_fwd_sm90<D><<<grid, C::kThreads, C::kSmem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), (int)seq, (int)heads,
       (int)(heads / kv_heads), causal, (int)window, scale * kLog2e);
   return cudaGetLastError();
 }
 
-// Calls f(std::integral_constant<int, D>) for D = dim in {32, 64, 128}.
+// Calls f(std::integral_constant<int, D>) for D = dim in {32, 64, 128, 160,
+// 256}.
 template <typename F>
 cudaError_t by_dim(int64_t dim, F f) {
   switch (dim) {
@@ -627,6 +664,10 @@ cudaError_t by_dim(int64_t dim, F f) {
       return f(std::integral_constant<int, 64>{});
     case 128:
       return f(std::integral_constant<int, 128>{});
+    case 160:
+      return f(std::integral_constant<int, 160>{});
+    case 256:
+      return f(std::integral_constant<int, 256>{});
     default:
       return cudaErrorInvalidValue;
   }
@@ -659,15 +700,15 @@ const char* fa_error_string(int code) {
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaErrorInvalidValue for a
 // shape or type the kernel does not take (the Python wrapper checks first).
-// The bf16 instance needs 16-byte aligned q, k, v (TMA), S below 2^23 (the
-// grid's query-tile axis) and a window below 2^31.
+// The bf16 instance needs 16-byte aligned q, k, v (TMA), S below 2^22 (the
+// grid's query-tile axis, 64 rows a tile at D = 256) and a window below 2^31.
 int fa_forward(const void* q, const void* k, const void* v, void* o, int64_t batch,
                int64_t seq, int64_t heads, int64_t kv_heads, int64_t dim, int dtype,
                int causal, int64_t window, float scale, void* stream) {
   if (batch < 1 || seq < 1 || kv_heads < 1 || heads % kv_heads || heads > 65535 ||
       batch > 65535)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && ((seq + kRowsCta - 1) / kRowsCta > 65535 || window > 0x7fffffff ||
+  if (dtype == 1 && ((seq + kRowsWg - 1) / kRowsWg > 65535 || window > 0x7fffffff ||
                      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16))
     return (int)cudaErrorInvalidValue;
   return (int)forward(q, k, v, o, batch, seq, heads, kv_heads, dim, dtype, causal,

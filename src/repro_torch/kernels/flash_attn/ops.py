@@ -13,7 +13,7 @@ from repro_torch.kernels.flash_attn import kernel as _k
 from repro_torch.kernels.flash_attn import ref as _ref
 from repro_torch.utils.device import on_cuda
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 160, 256)
 
 
 def _check_inputs(q, k, v, window: int) -> None:

@@ -6,11 +6,13 @@ JAX launcher does), then generates ``--gen`` tokens, greedy or with
 temperature sampling, and prints the prefill seconds and the decode
 tokens/s. Weights are random, from the port's own init on a seeded
 ``torch.Generator``; the prompt comes from ``numpy.random.default_rng(0)``,
-as in the JAX launcher. The full-sequence prefill entry is
-``Model.prefill_logits``.
+as in the JAX launcher. An encoder-decoder (whisper-tiny) first draws its
+stub frames from the same generator, before the prompt, and fills the
+cross cache from them (``Model.prefill_cross``). The full-sequence prefill
+entry is ``Model.prefill_logits``.
 
-Example:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+Example (any id of ``repro_torch.configs.list_archs()``):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
       --smoke --batch 4 --prompt-len 32 --gen 16 --device cpu
 """
 from __future__ import annotations
@@ -46,15 +48,19 @@ def _sync(device: torch.device) -> None:
 
 def generate(model: Model, params, prompt: torch.Tensor, gen: int,
              temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None) -> Dict[str, object]:
+             generator: Optional[torch.Generator] = None,
+             frames: Optional[torch.Tensor] = None) -> Dict[str, object]:
     """Prefill ``prompt`` (B, P) through the decode cache, then generate
-    ``gen`` tokens. Returns ``{"tokens": (B, gen + 1) int64 numpy,
+    ``gen`` tokens; an encoder-decoder's cross cache is filled from
+    ``frames`` first. Returns ``{"tokens": (B, gen + 1) int64 numpy,
     "prefill_s", "decode_s", "decode_tok_s"}``; the first generated token
     is the prefill's argmax, as in the JAX launcher."""
     batch, prompt_len = prompt.shape
     device = model.device
     cache = model.init_cache(batch, prompt_len + gen)
     with torch.no_grad():
+        if frames is not None:
+            cache = model.prefill_cross(params, cache, frames)
         t0 = time.perf_counter()
         logits = None
         for i in range(prompt_len):
@@ -102,11 +108,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     rng = np.random.default_rng(0)
     init_gen, sample_gen = split_generator(0, device)
     params = model.init(init_gen)
+    frames = None
+    if cfg.is_encdec:  # drawn before the prompt, as in the JAX launcher
+        frames = torch.from_numpy(rng.normal(
+            size=(args.batch, cfg.encoder_seq_len, cfg.d_model)).astype(
+                np.float32)).to(device)
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len))).to(device)
 
     res = generate(model, params, prompt, args.gen,
-                   temperature=args.temperature, generator=sample_gen)
+                   temperature=args.temperature, generator=sample_gen,
+                   frames=frames)
     print(f"prefill: {args.prompt_len} steps in {res['prefill_s']:.2f}s; "
           f"decode: {res['decode_tok_s']:.1f} tok/s")
     print("generated token ids (first row):", res["tokens"][0].tolist())

@@ -1,15 +1,16 @@
 """Attention (port of the JAX package's ``models/attention.py``): GQA,
 qk-norm, optional bias, RoPE; causal / sliding-window self-attention over a
-full sequence through kernel K5, and single-token decode against a full or
-ring KV cache.
+full sequence through kernel K5; single-token decode against a full or ring
+KV cache; cross-attention (encoder-decoder) over a full sequence and, in
+decode, against the encoder's precomputed K/V.
 
 Causal self-attention, windowed or not, goes through
 ``kernels/flash_attn/ops.py::flash_attention``: the K5 CUDA kernel for CUDA
 tensors, its plain version for CPU tensors. That one function stands in
 for the JAX package's full, sliding-window and chunked jnp paths (its XLA
 fallbacks of the same kernel). Non-causal attention stays plain
-(``_full_attention``), as the JAX package's kernel branch also requires
-``causal``.
+(``_full_attention``: the encoder and cross-attention), as the JAX
+package's kernel branch also requires ``causal``.
 """
 from __future__ import annotations
 
@@ -29,7 +30,9 @@ Params = Dict[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 
-def init_attention(init: Init, cfg) -> Params:
+def init_attention(init: Init, cfg, cross: bool = False) -> Params:
+    """Projections of one attention block; a cross-attention block
+    (``cross``) has the same leaves."""
     dtype = dtype_of(cfg.param_dtype)
     d = cfg.d_model
     hd = cfg.resolved_head_dim
@@ -171,3 +174,20 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(vv.dtype), vv)
     return out.reshape(b, 1, -1) @ p["wo"]
+
+
+def cross_attention_decode(cfg, p: Params, x: torch.Tensor,
+                           enc_kv: Params) -> torch.Tensor:
+    """Decoder cross-attention of x (B, S, d) against the encoder's
+    precomputed K/V (``precompute_cross_kv``), every frame visible."""
+    b = x.shape[0]
+    q = _project_q(cfg, p, x)
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+    out = _full_attention(q, repeat_kv(enc_kv["k"], n_rep),
+                          repeat_kv(enc_kv["v"], n_rep), causal=False)
+    return out.reshape(b, x.shape[1], -1) @ p["wo"]
+
+
+def precompute_cross_kv(cfg, p: Params, enc_out: torch.Tensor) -> Params:
+    k, v = _project_kv(cfg, p, enc_out)
+    return {"k": k, "v": v}

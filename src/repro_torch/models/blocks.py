@@ -1,5 +1,5 @@
-"""Decoder blocks and the layer stack (port of the JAX package's
-``models/blocks.py``).
+"""Decoder and encoder blocks and the layer stack (port of the JAX
+package's ``models/blocks.py``).
 
 Layer parameters are stacked on a leading layer axis, as the JAX package's
 ``init_stack`` makes them (``jax.vmap`` over layer keys), so weights carry
@@ -8,9 +8,9 @@ across unchanged; the stack runs as a Python loop over that axis, layer
 layer axis and are updated in place, where the JAX package's ``lax.scan``
 returns new ones.
 
-Ported families: dense, hybrid (attention and SSM in parallel, Hymba) and
-SSM-only. The MoE FFN, the encoder and the cross-attention branches raise
-``NotImplementedError`` naming ROADMAP Slice F.
+Families: dense, MoE (with arctic's dense residual FFN), hybrid (attention
+and SSM in parallel, Hymba), SSM-only, and the encoder-decoder's encoder
+layers and cross-attention.
 """
 from __future__ import annotations
 
@@ -19,24 +19,11 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Init, apply_mlp, apply_norm, init_mlp, make_norm_params
 
 Params = Dict[str, Any]
-
-_NOT_PORTED = ("is not ported yet (ROADMAP Slice F: moe.py, the encoder, "
-               "cross-attention and patch branches)")
-
-
-def check_ported(cfg) -> None:
-    """Raise for a config that needs a branch the port does not have."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"the MoE FFN of {cfg.name} {_NOT_PORTED}")
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"the encoder-decoder stack of {cfg.name} {_NOT_PORTED}")
-    if cfg.num_patches:
-        raise NotImplementedError(f"the VLM patches of {cfg.name} {_NOT_PORTED}")
 
 
 def layer_view(stacked: Params, i: int) -> Params:
@@ -53,20 +40,14 @@ def num_stacked(stacked: Params) -> int:
     return stacked.shape[0]
 
 
-def _stack(trees: list) -> Params:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
 # ---------------------------------------------------------------------------
 # per-layer init
 # ---------------------------------------------------------------------------
 
 
-def init_layer(init: Init, cfg) -> Params:
-    """One decoder layer's params for the cfg's family."""
-    check_ported(cfg)
+def init_layer(init: Init, cfg, cross: bool = False) -> Params:
+    """One decoder layer's params for the cfg's family (``cross``: with
+    cross-attention over the encoder's output)."""
     p: Params = {"norm1": make_norm_params(cfg, cfg.d_model, init)}
     if cfg.is_ssm_only:
         p["ssm"] = ssm_mod.init_ssm(init, cfg)
@@ -76,14 +57,42 @@ def init_layer(init: Init, cfg) -> Params:
         p["ssm"] = ssm_mod.init_ssm(init, cfg)
         p["fuse_norm_a"] = make_norm_params(cfg, cfg.d_model, init)
         p["fuse_norm_s"] = make_norm_params(cfg, cfg.d_model, init)
+    if cross:
+        p["norm_x"] = make_norm_params(cfg, cfg.d_model, init)
+        p["xattn"] = attn.init_attention(init, cfg, cross=True)
     p["norm2"] = make_norm_params(cfg, cfg.d_model, init)
-    p["mlp"] = init_mlp(init, cfg)
+    if cfg.is_moe:
+        p["moe"] = moe_mod.init_moe(init, cfg)
+        if cfg.dense_residual_ff:
+            p["mlp"] = init_mlp(init, cfg)
+    else:
+        p["mlp"] = init_mlp(init, cfg)
     return p
 
 
-def init_stack(init: Init, cfg, num_layers: int) -> Params:
-    """Layer params stacked on a leading axis of ``num_layers``."""
-    return _stack([init_layer(init, cfg) for _ in range(num_layers)])
+def init_stack(init: Init, cfg, num_layers: int, cross: bool = False
+               ) -> Params:
+    """Layer params stacked on a leading axis of ``num_layers``.
+
+    Each stacked leaf is allocated once and layer ``i`` is drawn, then
+    copied into its slice, so the init holds the stack and one layer (not
+    two copies of the stack); the draws are those of ``init_layer`` layer
+    after layer."""
+    stacked: Params = {}
+
+    def put(dst: Params, src: Params, i: int) -> None:
+        for key, val in src.items():
+            if isinstance(val, dict):
+                put(dst.setdefault(key, {}), val, i)
+                continue
+            if key not in dst:
+                dst[key] = val.new_empty((num_layers, *val.shape))
+            if val.device.type != "meta":
+                dst[key][i].copy_(val)
+
+    for i in range(num_layers):
+        put(stacked, init_layer(init, cfg, cross=cross), i)
+    return stacked
 
 
 # ---------------------------------------------------------------------------
@@ -106,30 +115,61 @@ def _mixer_train(cfg, p: Params, x: torch.Tensor,
     return x + attn.attention_train(cfg, p["attn"], h, window=window)
 
 
+def _ffn(cfg, p: Params, h: torch.Tensor):
+    """The FFN on the normed input: the MLP, or the MoE (plus arctic's
+    dense residual MLP). Returns (y, aux_loss)."""
+    if cfg.is_moe:
+        y, aux = moe_mod.moe_ffn(cfg, p["moe"], h)
+        if cfg.dense_residual_ff:
+            y = y + apply_mlp(cfg, p["mlp"], h)
+        return y, aux
+    return apply_mlp(cfg, p["mlp"], h), \
+        torch.zeros((), dtype=torch.float32, device=h.device)
+
+
 def _ffn_train(cfg, p: Params, x: torch.Tensor):
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.is_ssm_only:
-        return x, zero  # mamba block subsumes the MLP
-    h = apply_norm(cfg, p["norm2"], x)
-    return x + apply_mlp(cfg, p["mlp"], h), zero
+    if cfg.is_ssm_only:  # mamba block subsumes the MLP
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    y, aux = _ffn(cfg, p, apply_norm(cfg, p["norm2"], x))
+    return x + y, aux
 
 
 def decoder_layer_train(cfg, p: Params, x: torch.Tensor,
+                        enc_out: Optional[torch.Tensor] = None,
                         window: Optional[int] = None):
-    """Returns (x, aux_loss)."""
+    """Returns (x, aux_loss). ``enc_out`` enables cross-attention
+    (encoder-decoder)."""
     x = _mixer_train(cfg, p, x, window)
+    if enc_out is not None and "xattn" in p:
+        h = apply_norm(cfg, p["norm_x"], x)
+        x = x + attn.attention_train(cfg, p["xattn"], h, kv_x=enc_out,
+                                     causal=False)
     return _ffn_train(cfg, p, x)
 
 
+def encoder_layer_train(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(cfg, p["norm1"], x)
+    x = x + attn.attention_train(cfg, p["attn"], h, causal=False)
+    x, _ = _ffn_train(cfg, p, x)
+    return x
+
+
 def run_stack_train(cfg, stacked: Params, x: torch.Tensor,
+                    enc_out: Optional[torch.Tensor] = None,
                     window: Optional[int] = None):
     """Run the layer stack in order. Returns (x, total_aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(num_stacked(stacked)):
         x, a = decoder_layer_train(cfg, layer_view(stacked, i), x,
-                                   window=window)
+                                   enc_out=enc_out, window=window)
         aux = aux + a
     return x, aux
+
+
+def run_encoder_stack(cfg, stacked: Params, x: torch.Tensor) -> torch.Tensor:
+    for i in range(num_stacked(stacked)):
+        x = encoder_layer_train(cfg, layer_view(stacked, i), x)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -138,19 +178,25 @@ def run_stack_train(cfg, stacked: Params, x: torch.Tensor,
 
 
 def init_layer_cache(cfg, batch: int, cache_len: int, dtype: torch.dtype,
-                     device: torch.device) -> Params:
+                     device: torch.device, cross: bool = False) -> Params:
     c: Params = {}
     if not cfg.is_ssm_only:
         c["kv"] = attn.init_kv_cache(cfg, batch, cache_len, dtype, device)
     if cfg.is_ssm_only or cfg.is_hybrid:
         c["ssm"] = ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
+    if cross:
+        shape = (batch, cfg.encoder_seq_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        c["cross"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                      "v": torch.zeros(shape, dtype=dtype, device=device)}
     return c
 
 
 def init_stack_cache(cfg, num_layers: int, batch: int, cache_len: int,
-                     dtype: torch.dtype, device: torch.device) -> Params:
+                     dtype: torch.dtype, device: torch.device,
+                     cross: bool = False) -> Params:
     """Layer-stacked cache (leading axis L), zeros."""
-    one = init_layer_cache(cfg, batch, cache_len, dtype, device)
+    one = init_layer_cache(cfg, batch, cache_len, dtype, device, cross=cross)
 
     def stack(t):
         if isinstance(t, dict):
@@ -173,8 +219,12 @@ def decoder_layer_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
                        apply_norm(cfg, p["fuse_norm_s"], s))
     else:
         x = x + attn.attention_decode(cfg, p["attn"], h, cache["kv"], pos)
-    h = apply_norm(cfg, p["norm2"], x)
-    return x + apply_mlp(cfg, p["mlp"], h)
+    if "xattn" in p and "cross" in cache:
+        h = apply_norm(cfg, p["norm_x"], x)
+        x = x + attn.cross_attention_decode(cfg, p["xattn"], h,
+                                            cache["cross"])
+    y, _ = _ffn(cfg, p, apply_norm(cfg, p["norm2"], x))
+    return x + y
 
 
 def run_stack_decode(cfg, stacked: Params, x: torch.Tensor, caches: Params,

@@ -54,7 +54,21 @@ class Init:
             return torch.empty(tuple(shape), dtype=dtype, device="meta")
         x = torch.randn(tuple(shape), generator=self.generator,
                         device=self.generator.device, dtype=torch.float32)
-        return (x * scale).to(dtype=dtype, device=self.device)
+        # scaled in place: one f32 draw is the only scratch
+        return x.mul_(scale).to(dtype=dtype, device=self.device)
+
+    def stacked_normal(self, n: int, shape: Sequence[int], scale: float,
+                       dtype: torch.dtype) -> torch.Tensor:
+        """``n`` draws of ``normal(shape, scale, dtype)`` stacked on a new
+        leading axis, each drawn straight into its slice: the f32 draw of
+        one slice is the only scratch (a stack of experts in f32 would be
+        twice its bf16 result)."""
+        if self.generator is None:
+            return torch.empty((n, *shape), dtype=dtype, device="meta")
+        out = torch.empty((n, *shape), dtype=dtype, device=self.device)
+        for i in range(n):
+            out[i] = self.normal(shape, scale, dtype)
+        return out
 
     def full(self, shape: Sequence[int], value: float,
              dtype: torch.dtype) -> torch.Tensor:

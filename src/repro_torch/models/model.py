@@ -6,9 +6,16 @@ stacked on a leading axis), so ``models/convert.py`` carries them across
 and the tests compare both packages like with like. Every method is a
 function of (params, inputs); the decode cache is updated in place.
 
-Batch dict: ``{"tokens": (B, S) int}``. The VLM (``num_patches``),
-encoder-decoder and MoE configs raise ``NotImplementedError`` (ROADMAP
-Slice F); ``loss`` comes with LM training.
+One class covers every family of the registry (dense, MoE, hybrid, SSM,
+VLM, audio). Batch dicts:
+
+  LM     : ``{"tokens": (B, S) int}``
+  VLM    : + ``{"patches": (B, P, d_model)}`` (stub frontend output),
+           projected and prepended; the text positions come out
+  audio  : + ``{"frames": (B, S_enc, d_model)}`` (stub conv/mel output)
+           through the encoder; the decoder cross-attends to it
+
+``loss`` comes with LM training.
 """
 from __future__ import annotations
 
@@ -17,7 +24,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import blocks
+from repro_torch.models import attention, blocks
 from repro_torch.models.layers import (
     Init,
     apply_norm,
@@ -37,7 +44,6 @@ class Model:
     for the CPU; raises without a card)."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = "cuda"):
-        blocks.check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -52,10 +58,18 @@ class Model:
         p: Params = {
             "embed": embed_init(init, cfg.vocab_size, cfg.d_model, dtype),
             "final_norm": make_norm_params(cfg, cfg.d_model, init),
-            "layers": blocks.init_stack(init, cfg, cfg.num_layers),
+            "layers": blocks.init_stack(init, cfg, cfg.num_layers,
+                                        cross=cfg.is_encdec),
         }
         if not cfg.tie_embeddings:
             p["lm_head"] = dense_init(init, cfg.d_model, cfg.vocab_size, dtype)
+        if cfg.num_patches:
+            p["projector"] = dense_init(init, cfg.d_model, cfg.d_model, dtype)
+        if cfg.is_encdec:
+            p["encoder"] = {
+                "layers": blocks.init_stack(init, cfg, cfg.encoder_layers),
+                "final_norm": make_norm_params(cfg, cfg.d_model, init),
+            }
         return p
 
     # ------------------------------------------------------------- embedding
@@ -82,14 +96,32 @@ class Model:
             return x @ params["embed"].T
         return x @ params["lm_head"]
 
+    def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        pos = torch.arange(frames.shape[1], device=frames.device)
+        x = frames.to(dtype_of(cfg.compute_dtype))
+        x = x + sinusoidal_positions(pos, cfg.d_model)[None].to(x.dtype)
+        x = blocks.run_encoder_stack(cfg, params["encoder"]["layers"], x)
+        return apply_norm(cfg, params["encoder"]["final_norm"], x)
+
     # --------------------------------------------------------- full sequence
     def hidden(self, params: Params, batch: Dict[str, torch.Tensor],
                window: Optional[int] = None):
-        """Full-sequence forward without the LM head. Returns
-        (hidden (B, S, d), aux_loss)."""
+        """Full-sequence forward without the LM head, on the text positions
+        only. Returns (hidden (B, S, d), aux_loss)."""
+        cfg = self.cfg
         x = self._embed(params, batch["tokens"])
-        return blocks.run_stack_train(self.cfg, params["layers"], x,
-                                      window=window)
+        enc_out = None
+        if cfg.num_patches:
+            patches = batch["patches"].to(x.dtype) @ params["projector"]
+            x = torch.cat([patches, x], dim=1)
+        if cfg.is_encdec:
+            enc_out = self._encode(params, batch["frames"])
+        x, aux = blocks.run_stack_train(cfg, params["layers"], x,
+                                        enc_out=enc_out, window=window)
+        if cfg.num_patches:
+            x = x[:, batch["patches"].shape[1]:]
+        return x, aux
 
     def apply(self, params: Params, batch: Dict[str, torch.Tensor],
               window: Optional[int] = None):
@@ -108,11 +140,30 @@ class Model:
     def init_cache(self, batch: int, cache_len: int) -> Params:
         """Layer-stacked decode cache (leading axis L) on the model's device:
         a ring KV cache of ``min(cache_len, attn_window)`` slots under SWA,
-        the SSM state and conv tail for SSM layers."""
+        the SSM state and conv tail for SSM layers, and the cross K/V of
+        ``encoder_seq_len`` frames for an encoder-decoder."""
         cfg = self.cfg
         return blocks.init_stack_cache(cfg, cfg.num_layers, batch, cache_len,
                                        dtype_of(cfg.compute_dtype),
-                                       self.device)
+                                       self.device, cross=cfg.is_encdec)
+
+    def prefill_cross(self, params: Params, cache: Params,
+                      frames: torch.Tensor) -> Params:
+        """Encoder-decoder only: run the encoder on ``frames`` (B, S_enc, d)
+        and write each layer's cross K/V into the stacked cross cache, in
+        place. Returns the cache."""
+        cross = cache["cross"]
+        if tuple(frames.shape[:2]) != tuple(cross["k"].shape[1:3]):
+            raise ValueError(f"frames {tuple(frames.shape)} do not fit the "
+                             f"cross cache {tuple(cross['k'].shape)}")
+        enc_out = self._encode(params, frames)
+        for i in range(self.cfg.num_layers):
+            layer = blocks.layer_view(params["layers"], i)
+            kv = attention.precompute_cross_kv(self.cfg, layer["xattn"],
+                                               enc_out)
+            cross["k"][i] = kv["k"]
+            cross["v"][i] = kv["v"]
+        return cache
 
     def decode_step(self, params: Params, cache: Params, tokens: torch.Tensor,
                     pos: int):
@@ -138,6 +189,19 @@ class Model:
             return t.numel()
 
         return count(params)
+
+    def active_param_count(self, params: Optional[Params] = None) -> int:
+        """Params touched per token (MoE: shared + top-k routed only)."""
+        cfg = self.cfg
+        if params is None:
+            params = self.init(None)
+        total = self.param_count(params)
+        if not cfg.is_moe:
+            return total
+        moe = params["layers"]["moe"]
+        routed = sum(moe[k].numel() for k in ("w_gate", "w_up", "w_down"))
+        active = routed * cfg.experts_per_token // cfg.num_experts
+        return total - routed + active
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> Model:

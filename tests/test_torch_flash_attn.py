@@ -72,6 +72,11 @@ CASES = [
     (1, 256, 2, 2, 32, True, 64, 128),   # window, S = 256
     (1, 100, 5, 1, 64, True, 24, 64),    # ragged S (JAX pads), window
     (2, 64, 4, 2, 32, False, 0, 32),     # bidirectional
+    # the head dims of stablelm-12b (5120 / 32 = 160) and gemma-7b (256)
+    (1, 128, 4, 4, 160, True, 0, 64),    # causal, n_rep 1
+    (2, 96, 8, 2, 160, True, 40, 32),    # window, n_rep 4
+    (1, 128, 4, 1, 256, True, 0, 64),    # causal, n_rep 4
+    (1, 100, 4, 2, 256, True, 24, 64),   # ragged S, window
 ]
 
 

@@ -74,7 +74,13 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.sim.legacy, repro_torch.sim.metrics, "
             "repro_torch.obs, repro_torch.launch.quickstart, "
             "repro_torch.models, "
-            "repro_torch.models.model, repro_torch.launch.serve, "
+            "repro_torch.models.model, repro_torch.models.moe, "
+            "repro_torch.launch.serve, repro_torch.configs.arctic_480b, "
+            "repro_torch.configs.deepseek_moe_16b, "
+            "repro_torch.configs.gemma_7b, repro_torch.configs.pixtral_12b, "
+            "repro_torch.configs.qwen15_110b, "
+            "repro_torch.configs.stablelm_12b, "
+            "repro_torch.configs.whisper_tiny, "
             "repro_torch.kernels.flash_attn.ops, "
             "repro_torch.kernels.ssm_scan.ops, repro_torch.core.cohort, "
             "repro_torch.core.serving, repro_torch.sim.arrivals, "
