@@ -8,9 +8,10 @@ Phases, in order; any failure raises and exits non-zero:
 1. Device line: the card's name and power limit from ``nvidia-smi``; TF32
    is switched off for cuDNN convolutions and for matmuls.
 2. Build: compile ``src/repro_torch/csrc/{weighted_agg,ring_codec,
-   flash_attn,ssm_scan}.cu`` for sm_90a, the four nvcc runs at once; print
-   ptxas's registers, shared memory and spills of the instances of K1-K6
-   (K5 at D = 32, 64, 128, 160, 256),
+   flash_attn,ssm_scan,flash_attn_bwd,ssm_scan_bwd}.cu`` for sm_90a, the
+   six nvcc runs at once; print ptxas's registers, shared memory and spills
+   of the instances of K1-K6 (K5 at D = 32, 64, 128, 160, 256) and of the
+   two backward kernels,
    and the co-resident blocks that bound the cooperative grids of K1 and
    K4 (one launch each, with a grid-wide barrier inside).
 3. Kernel phases: K1 (fused server pass), K2 (squared distances) and K3
@@ -177,15 +178,39 @@ Phases, in order; any failure raises and exits non-zero:
    model is freed before the next, and the card's allocated memory must
    return to where it was.
 
+10. Slice F3, LM training: (a) K5's backward kernel against its plain
+   backward formula at the training run's shape (B = 4, S = 2048), at
+   Hymba's prefill shapes (B=2, S=4096, 25/5 heads, D=64; window 1024 and
+   0; bf16 and f32), a ragged S (3001) and deepseek-moe-16b's D = 128,
+   two launches bit-identical, timed per call and as a burst beside its
+   bound (10 D FLOP a visible pair) and SDPA's backward (band mask, GQA);
+   (b) K6's backward at the training shape (an A per slot), Hymba's widths
+   with a shared and a per-row A and a ragged S (1001), the per-row-A
+   forward against its plain version, bit-identical twice, beside its
+   bytes bound; (c) ``torch.func.grad`` of ``Model.loss`` at Hymba's full
+   width, 2 layers, S=512, f32: card against CPU, under ``vmap`` over 3
+   clients against 3 calls (one launch a pass), ``ce_chunk`` and
+   ``remat_block`` against the plain run; (d) the training run through
+   ``launch/train.py``'s ``TrainLoop``: Hymba-1.5B at full width in bf16,
+   6 of 32 layers, cohort C=4, K=3, M=2, b=1, S=2048, fused, 1 warm-up and
+   5 timed rounds, every round's launches exact (K5 and K6 forward 5L,
+   backward 2L, K1 1, K2-K4 0), finite fresh losses, the version one up a
+   round; rounds/s, trained tokens/s, the host's batch seconds and peak
+   memory; then ``launch/train.py --arch hymba-1.5b --smoke --rounds 3``
+   in a process of its own.
+
 The last two lines of standard output are the kernels' JSON record (with
 each kernel's launches in the cohort runs, in the population runs, a rank
-in each Slice E run and the Slice F2 prefill beside the main path's; K5's
-record lists its F2 shapes) and ``{"ok": true, "device": {...}}``.
+in each Slice E run, the Slice F2 prefill and the Slice F3 training run
+beside the main path's; K5's record lists its F2 shapes; the two backward
+kernels' records their launches in the training run and their other
+shapes) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -2661,6 +2686,443 @@ def slice_f2_phase(torch, np, kernel_ops, fa_ref, serve, get_arch, Model,
     return out
 
 
+# Slice F3: LM training. The backward kernels of K5 and K6 (no TPU kernel:
+# the JAX package differentiates its jnp paths, which these stand for)
+BWD_SOURCES = {"flash_attention_bwd": "src/repro_torch/csrc/flash_attn_bwd.cu",
+               "selective_scan_bwd": "src/repro_torch/csrc/ssm_scan_bwd.cu"}
+BWD_REPLACES = {"flash_attention_bwd": "src/repro/models/attention.py:168",
+                "selective_scan_bwd": "src/repro/models/ssm.py:63"}
+# K5's backward: (B, S, H, Hkv, D, window, dtype); the first is the training
+# run's (4 slots x b = 1 folded into B, S = 2048), then Hymba's prefill
+# shapes, a ragged S, and deepseek-moe-16b's D = 128
+ATTN_BWD_CASES = ((4, 2048, 25, 5, 64, 1024, "bfloat16"),
+                  (2, 4096, 25, 5, 64, 1024, "bfloat16"),
+                  (2, 4096, 25, 5, 64, 1024, "float32"),
+                  (2, 4096, 25, 5, 64, 0, "bfloat16"),
+                  (2, 4096, 25, 5, 64, 0, "float32"),
+                  (2, 3001, 25, 5, 64, 1024, "bfloat16"),
+                  (2, 4096, 16, 16, 128, 0, "bfloat16"))
+# K5's backward vs its plain backward (rtol, atol in units of the largest
+# |gradient|): both sum in f32, in other orders; bf16 outputs are the f32
+# sums rounded once, so they differ by one bf16 ulp of an element at most
+ATTN_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-3, 4e-3)}
+# K6's backward: (B, S, groups of a; 0 = one shared a); the first is the
+# training run's (4 slots, each with its own A), then Hymba's widths with a
+# shared and a per-row a, and a ragged S
+SCAN_BWD_CASES = ((4, 2048, 4), (2, 4096, 0), (2, 4096, 2), (2, 1001, 0))
+SCAN_BWD_RTOL, SCAN_BWD_ATOL_REL = 1e-4, 1e-5
+# torch.func.grad of Model.loss, card vs CPU, f32, TF32 off: cuBLAS vs the
+# CPU's matmuls over 2 layers at full width; in units of the largest |grad|
+GRAD_TOL = 1e-4
+GRAD_S, GRAD_LAYERS, GRAD_CLIENTS, GRAD_CE_CHUNK = 512, 2, 3, 200
+# (d) the training run: Hymba-1.5B at full width, bf16, cohort C, buffer K,
+# M local steps of b sequences of S tokens; 1 warm-up round, then the timed
+# ones. Depth cut to TRAIN_LAYERS of 32 so the cohort state fits the card
+TRAIN_C, TRAIN_K, TRAIN_M, TRAIN_B, TRAIN_S = 4, 3, 2, 1, 2048
+TRAIN_LAYERS, TRAIN_ROUNDS = 6, 5
+TRAIN_PEAK_LIMIT = 72 << 30
+TRAIN_PROBE_LAYERS = 2  # a short run here gives the peak's bytes a layer
+
+
+def tree_err(torch, got, want) -> float:
+    """Largest |got - want| over a tree's leaves, over the largest |want|."""
+    from repro_torch.utils.tree import tree_leaves
+
+    pairs = list(zip(tree_leaves(got), tree_leaves(want)))
+    err = max(float((a.float().cpu() - b.float().cpu()).abs().max())
+              for a, b in pairs)
+    return err / max(float(b.float().abs().max()) for _, b in pairs)
+
+
+def attn_bwd_phase(torch, fa_ops, fa_ref, rate: float):
+    """(a) K5's backward against its plain backward; per-case records."""
+    F = torch.nn.functional
+    records = {}
+    for b, s, h, hkv, d, window, dtype_name in ATTN_BWD_CASES:
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator(device="cuda").manual_seed(s + h + d + window)
+        q, k, v, do = (torch.randn(b, s, n, d, device="cuda", generator=g)
+                       .to(dtype) for n in (h, hkv, hkv, h))
+        o = fa_ops.flash_attention(q, k, v, window=window)
+
+        def kernel():
+            return fa_ops.flash_attention_bwd(q, k, v, o, do, window=window)
+
+        got = kernel()
+        again = kernel()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"K5 backward not bit-identical at {(b, s, h, d, window)}")
+        want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, window=window)
+        rtol, atol = ATTN_BWD_TOL[dtype_name]
+        err = 0.0
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            scale = float(y.float().abs().max())
+            e = float((x.float() - y.float()).abs().max())
+            err = max(err, e)
+            check(torch.allclose(x.float(), y.float(), rtol=rtol,
+                                 atol=atol * scale),
+                  f"K5 backward {name} vs plain at {(b, s, h, d, window)} "
+                  f"{dtype_name}: max abs err {e} of max {scale}")
+        del got, again, want
+        # yardstick: SDPA's backward on the same band (B, H, S, D)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        mask = fa_ref.band_mask(s, s, True, window, q.device)
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                             enable_gqa=True)
+
+        def library():
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        pairs = attn_pairs(s, window)
+        flops = 10 * d * pairs * b * h
+        nbytes = (4 * b * s * h + 4 * b * s * hkv) * d * q.element_size()
+        bytes_ms = nbytes / rate * 1e3
+        ops_ms = flops / (BF16_FLOPS if dtype == torch.bfloat16
+                          else F32_FLOPS) * 1e3
+        r = dict(
+            ms=time_ms(torch, kernel, reps=10, warmup=2),
+            burst_ms=time_burst(torch, kernel, n=20, warmup=2),
+            plain_ms=time_ms(torch, lambda: fa_ref.flash_attention_bwd_ref(
+                q, k, v, o, do, window=window), reps=2, warmup=1),
+            library_ms=time_ms(torch, library, reps=10, warmup=2),
+            library_burst_ms=None, device_ms=None, library_device_ms=None,
+            max_abs_err=err, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            shape=dict(b=b, s=s, h=h, hkv=hkv, d=d, window=window,
+                       dtype=dtype_name))
+        print(f"    K5 backward B={b} S={s:5d} H={h} Hkv={hkv} D={d} "
+              f"window={window:4d} {dtype_name:8s}: kernel {r['ms']:.4f} ms "
+              f"(burst {r['burst_ms']:.4f})  plain {r['plain_ms']:.4f} ms  "
+              f"SDPA backward {r['library_ms']:.4f} ms  bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes:,d} B)  max_abs_err "
+              f"{err:.3g}")
+        records[(b, s, h, hkv, d, window, dtype_name)] = r
+        del q, k, v, o, do, qt, kt, vt, dot, out, mask
+        torch.cuda.empty_cache()
+    return records
+
+
+def scan_bwd_phase(torch, ss_ops, ss_ref, rate: float):
+    """(b) K6's backward (and the per-row-a forward) against their plain
+    versions; per-case records."""
+    di, n = HYMBA_DI, HYMBA_N
+    records = {}
+    for b, s, groups in SCAN_BWD_CASES:
+        g = torch.Generator(device="cuda").manual_seed(b + s + groups)
+        x = torch.randn(b, s, di, device="cuda", generator=g)
+        dt = torch.nn.functional.softplus(
+            torch.randn(b, s, di, device="cuda", generator=g) - 1.0)
+        bb, c = (torch.randn(b, s, n, device="cuda", generator=g)
+                 for _ in range(2))
+        a = -torch.exp(0.5 * torch.randn(*((groups,) if groups else ()), di,
+                                         n, device="cuda", generator=g))
+        dy = torch.randn(b, s, di, device="cuda", generator=g)
+        args = (x, dt, bb, c, a, dy)
+        if groups:  # the forward with one a per group of rows
+            y = ss_ops.selective_scan(*args[:5])
+            want_y = ss_ref.selective_scan_ref(*args[:5])
+            check(torch.allclose(y, want_y, rtol=SCAN_RTOL,
+                                 atol=SCAN_ATOL_REL * float(
+                                     want_y.abs().max())),
+                  f"K6 per-row-a forward vs plain at {(b, s, groups)}")
+            del y, want_y
+
+        def kernel():
+            return ss_ops.selective_scan_bwd(*args)
+
+        got = kernel()
+        check(all(torch.equal(p, q) for p, q in zip(got, kernel())),
+              f"K6 backward not bit-identical at {(b, s, groups)}")
+        want = ss_ref.selective_scan_bwd_ref(*args)
+        err = 0.0
+        for name, p, q in zip(("dx", "ddt", "db", "dc", "da"), got, want):
+            scale = float(q.abs().max())
+            e = float((p - q).abs().max())
+            err = max(err, e)
+            check(torch.allclose(p, q, rtol=SCAN_BWD_RTOL,
+                                 atol=SCAN_BWD_ATOL_REL * scale),
+                  f"K6 backward {name} vs plain at {(b, s, groups)}: max abs "
+                  f"err {e} of max {scale}")
+        del got, want
+        a_mats = groups or 1
+        nbytes = (5 * b * s * di + 4 * b * s * n + 2 * a_mats * di * n) * 4
+        flops = 20 * b * s * di * n
+        bytes_ms = nbytes / rate * 1e3
+        ops_ms = flops / F32_FLOPS * 1e3
+        first = (b, s, groups) == SCAN_BWD_CASES[0]
+        r = dict(
+            ms=time_ms(torch, kernel, reps=10, warmup=2),
+            burst_ms=time_burst(torch, kernel, n=10, warmup=2),
+            plain_ms=(time_ms(torch, lambda: ss_ref.selective_scan_bwd_ref(
+                *args), reps=1, warmup=0) if first else None),
+            library_ms=None, library_burst_ms=None, device_ms=None,
+            library_device_ms=None, max_abs_err=err,
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            shape=dict(b=b, s=s, di=di, n=n, a_groups=groups))
+        print(f"    K6 backward B={b} S={s:5d} di={di} N={n} a "
+              f"{'per ' + str(b // groups) + ' rows' if groups else 'shared'}"
+              f": kernel {r['ms']:.4f} ms (burst {r['burst_ms']:.4f})  plain "
+              f"{fmt_ms(r['plain_ms'])} ms  library n/a  bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes:,d} B)  "
+              f"max_abs_err {err:.3g}")
+        records[(b, s, groups)] = r
+        del x, dt, bb, c, a, dy, args
+        torch.cuda.empty_cache()
+    return records
+
+
+def grads_phase(torch, np, fa_ops, ss_ops, get_arch, Model):
+    """(c) torch.func.grad of Model.loss at Hymba's full width, 2 layers,
+    f32: card vs CPU, vmap over clients vs separate calls, ce_chunk and
+    remat_block vs the plain run."""
+    from torch.func import grad, vmap
+
+    from repro_torch.utils.tree import tree_map
+
+    base = get_arch("hymba-1.5b").model.replace(
+        num_layers=GRAD_LAYERS, param_dtype="float32", compute_dtype="float32")
+
+    def loss_grad(cfg, device):
+        model = Model(cfg, device=device)
+        return grad(lambda p, b: model.loss(p, b)[0])
+
+    card = Model(base, device="cuda")
+    params = card.init(torch.Generator(device="cuda").manual_seed(3))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, base.vocab_size, (GRAD_CLIENTS, 1, GRAD_S + 1)))
+    batches = [{"tokens": toks[i, :, :GRAD_S], "labels": toks[i, :, 1:]}
+               for i in range(GRAD_CLIENTS)]
+    on_card = [{k: v.cuda() for k, v in b.items()} for b in batches]
+
+    def counts():
+        return (fa_ops.flash_attention.launches,
+                ss_ops.selective_scan.launches,
+                fa_ops.flash_attention_bwd.launches,
+                ss_ops.selective_scan_bwd.launches)
+
+    fa_ops.reset_launches()
+    ss_ops.reset_launches()
+    g_card = loss_grad(base, "cuda")(params, on_card[0])
+    torch.cuda.synchronize()
+    n = GRAD_LAYERS
+    check(counts() == (2 * n, 2 * n, n, n), f"grad launches {counts()}")
+    t = time.perf_counter()
+    g_cpu = loss_grad(base, "cpu")(to_cpu(params), batches[0])
+    err = tree_err(torch, g_card, g_cpu)
+    print(f"    grad of Model.loss, {n} layers, S={GRAD_S}, f32: card vs CPU "
+          f"{err:.3g} of max |grad| (limit {GRAD_TOL}); K5/K6 forward, "
+          f"backward launches {counts()}; CPU {time.perf_counter() - t:.1f} s")
+    check(err <= GRAD_TOL, f"grad card vs CPU {err}")
+    del g_cpu
+
+    # vmap over clients, each with its own params: one launch a pass
+    g = torch.Generator(device="cuda").manual_seed(4)
+    clients = tree_map(lambda p: p[None] + 1e-3 * torch.randn(
+        (GRAD_CLIENTS,) + tuple(p.shape), device="cuda", generator=g), params)
+    stacked = {k: torch.stack([b[k] for b in on_card]) for k in on_card[0]}
+    fa_ops.reset_launches()
+    ss_ops.reset_launches()
+    together = vmap(loss_grad(base, "cuda"))(clients, stacked)
+    torch.cuda.synchronize()
+    check(counts() == (2 * n, 2 * n, n, n), f"vmapped launches {counts()}")
+    errs = [tree_err(torch, tree_map(lambda t: t[i], together),
+                     loss_grad(base, "cuda")(tree_map(lambda t: t[i], clients),
+                                             on_card[i]))
+            for i in range(GRAD_CLIENTS)]
+    print(f"    vmap over {GRAD_CLIENTS} clients vs separate calls: "
+          f"{max(errs):.3g} of max |grad|")
+    check(max(errs) <= GRAD_TOL, f"vmap vs separate {errs}")
+    del clients, together
+
+    # ce_chunk (ragged last chunk) and grouped remat: the same gradients
+    for what, cfg in (("ce_chunk", base.replace(ce_chunk=GRAD_CE_CHUNK)),
+                      ("remat_block", base.replace(remat_block=2))):
+        e = tree_err(torch, loss_grad(cfg, "cuda")(params, on_card[0]),
+                     g_card)
+        print(f"    {what} vs the plain run: {e:.3g} of max |grad|")
+        check(e <= GRAD_TOL, f"{what} vs plain {e}")
+    del params, g_card
+    torch.cuda.empty_cache()
+
+
+def train_phase(torch, kernel_ops, get_arch, card: str, layers: int):
+    """(d) The training run at Hymba-1.5B's full width, through
+    ``launch/train.py``'s ``TrainLoop``; then the launcher in a process of
+    its own."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.launch import train
+
+    ops, rc_ops, fa_ops, ss_ops = kernel_ops
+
+    def reset():
+        for o in kernel_ops:
+            o.reset_launches()
+
+    def counts():
+        return {"fused_server": ops.server_update.launches,
+                "sq_dists": ops.sq_dists.launches,
+                "weighted_sum": ops.weighted_sum.launches,
+                "int8_sq_dists": rc_ops.int8_sq_dists.launches,
+                "flash_attention": fa_ops.flash_attention.launches,
+                "selective_scan": ss_ops.selective_scan.launches,
+                "flash_attention_bwd": fa_ops.flash_attention_bwd.launches,
+                "selective_scan_bwd": ss_ops.selective_scan_bwd.launches}
+
+    fl = FLConfig(buffer_size=TRAIN_K, local_steps=TRAIN_M, local_lr=5e-3,
+                  weighting="paper", server_pass_mode="fused")
+
+    def make_loop(depth: int, rounds: int):
+        cfg = get_arch("hymba-1.5b").model.replace(num_layers=depth)
+        return train.TrainLoop(cfg, fl, cohort=TRAIN_C, batch=TRAIN_B,
+                               seq=TRAIN_S, rounds=rounds, seed=0,
+                               device="cuda")
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    # the depth: the peak of 2 rounds at TRAIN_PROBE_LAYERS, against the
+    # run's, gives the bytes a layer adds
+    torch.cuda.reset_peak_memory_stats()
+    probe = make_loop(TRAIN_PROBE_LAYERS, 2)
+    for r in range(2):
+        probe.round(r)
+    torch.cuda.synchronize()
+    probe_peak = torch.cuda.max_memory_allocated() - base
+    del probe
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    # the timed rounds, then one more under torch.profiler
+    loop = make_loop(layers, TRAIN_ROUNDS + 2)
+    n_params = loop.model.param_count(loop.state.global_params)
+    torch.cuda.synchronize()
+    print(f"    Hymba-1.5B at full width, {layers} of 32 layers, bf16: "
+          f"{n_params:,d} params; cohort state "
+          f"{(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB; init "
+          f"{time.perf_counter() - t:.1f} s")
+    want = {"fused_server": 1, "sq_dists": 0, "weighted_sum": 0,
+            "int8_sq_dists": 0,
+            "flash_attention": (2 * TRAIN_M + 1) * layers,
+            "selective_scan": (2 * TRAIN_M + 1) * layers,
+            "flash_attention_bwd": TRAIN_M * layers,
+            "selective_scan_bwd": TRAIN_M * layers}
+    times, batch_times, losses = [], [], []
+    reset()  # the run's counts: set to 0 here, read after its last round
+    before = counts()
+    for r in range(TRAIN_ROUNDS + 1):
+        t = time.perf_counter()
+        mets = loop.round(r)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        now = counts()
+        got = {k: now[k] - before[k] for k in now}
+        before = now
+        check(got == want, f"training round {r}: launches {got}, want {want}")
+        loss = float(mets["fresh_loss_mean"])
+        check(math.isfinite(loss), f"round {r} loss {loss}")
+        check(int(loop.state.version) == r + 1,
+              f"version {int(loop.state.version)} after round {r}")
+        losses.append(loss)
+        if r:  # round 0 is the warm-up
+            times.append(dt)
+            batch_times.append(loop.batch_s)
+    peak = torch.cuda.max_memory_allocated()
+    check(peak - base <= TRAIN_PEAK_LIMIT,
+          f"training peak {peak / 2**30:.2f} GiB")
+    per_layer = (peak - base - probe_peak) / (layers - TRAIN_PROBE_LAYERS)
+    print(f"    depth: peak {probe_peak / 2**30:.2f} GiB at "
+          f"{TRAIN_PROBE_LAYERS} layers, {(peak - base) / 2**30:.2f} GiB at "
+          f"{layers}: {per_layer / 2**30:.2f} GiB a layer, so "
+          f"{(peak - base + per_layer) / 2**30:.2f} GiB at {layers + 1} "
+          f"(limit {TRAIN_PEAK_LIMIT / 2**30:.0f} GiB)")
+    total = sum(times)
+    tokens = TRAIN_C * TRAIN_M * TRAIN_B * TRAIN_S
+    out = dict(layers=layers, params=n_params, round_s=times,
+               batch_s=batch_times,
+               rounds_per_s=len(times) / total,
+               tokens_per_s=tokens * len(times) / total,
+               peak_gib=(peak - base) / 2**30, losses=losses,
+               per_round=want, counts=counts())
+    print(f"    training ({card}): C={TRAIN_C} K={TRAIN_K} M={TRAIN_M} "
+          f"b={TRAIN_B} S={TRAIN_S}, {layers} layers, fused: "
+          f"{out['rounds_per_s']:.4f} rounds/s, {out['tokens_per_s']:,.0f} "
+          f"trained tokens/s (rounds {', '.join(f'{x:.3f}' for x in times)} "
+          f"s after a warm-up of 1; of which the host made the batches in "
+          f"{', '.join(f'{x:.3f}' for x in batch_times)} s), peak "
+          f"{out['peak_gib']:.2f} GiB; "
+          f"fresh loss by round {[round(x, 4) for x in losses]}; launches "
+          f"a round {want}")
+    # one more round under torch.profiler (outside the counted run)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        loop.round(TRAIN_ROUNDS + 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = device_events(torch, prof.key_averages())
+    busy_ms = sum(us for _, _, us in rows) / 1e3
+    out.update(profile_wall_ms=wall_ms, profile_busy_ms=busy_ms,
+               profile_batch_ms=loop.batch_s * 1e3)
+    print(f"    one round under torch.profiler: {wall_ms:.1f} ms wall (the "
+          f"host's batch {loop.batch_s * 1e3:.1f} ms), device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.0f}%) in "
+          f"{sum(c for _, c, _ in rows)} device operations; largest:")
+    for name, count, us in rows[:10]:
+        print(f"      {us / 1e3:9.3f} ms  x{count:5d}  {name[:100]}")
+    for what, part in (("K5 forward", "flash_fwd"), ("K5 backward", "fa_bwd"),
+                       ("K6 forward", "selective_scan_kernel"),
+                       ("K6 backward", "ss_bwd")):
+        ms = sum(us for name, _, us in rows if part in name) / 1e3
+        out[f"profile_{part}_ms"] = ms
+        print(f"      {what}: {ms:.3f} ms ({100 * ms / busy_ms:.1f}% of busy)")
+    del loop, mets, prof
+    torch.cuda.empty_cache()
+
+    # the launcher, as a user runs it, in a process of its own
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "hymba-1.5b", "--smoke", "--rounds", "3"], cwd=str(ROOT),
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"launch/train.py exited {proc.returncode}: {proc.stderr[-2000:]}")
+    print(f"    launch/train.py --arch hymba-1.5b --smoke --rounds 3 on the "
+          f"card: exit 0, {time.perf_counter() - t:.1f} s; "
+          f"{(proc.stderr.strip().splitlines() or [''])[-1]}")
+    return out
+
+
+def slice_f3_phase(torch, np, kernel_ops, fa_ref, ss_ref, get_arch, Model,
+                   rate: float, card: str):
+    """Slice F3: LM training on the card."""
+    _, _, fa_ops, ss_ops = kernel_ops
+    out = {}
+    t = time.perf_counter()
+    print("  (a) K5's backward (median of 10 calls; burst of 20):")
+    out["attn"] = attn_bwd_phase(torch, fa_ops, fa_ref, rate)
+    print("  (b) K6's backward (median of 10 calls; burst of 10):")
+    out["scan"] = scan_bwd_phase(torch, ss_ops, ss_ref, rate)
+    print(f"  (a), (b): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    print("  (c) gradients of Model.loss:")
+    grads_phase(torch, np, fa_ops, ss_ops, get_arch, Model)
+    print(f"  (c): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    print("  (d) the training run:")
+    out["train"] = train_phase(torch, kernel_ops, get_arch, card,
+                               TRAIN_LAYERS)
+    print(f"  (d): {time.perf_counter() - t:.1f} s")
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -2720,7 +3182,8 @@ def main() -> int:
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
     libraries = (kernel.LIBRARY, rc_kernel.LIBRARY, fa_kernel.LIBRARY,
-                 ss_kernel.LIBRARY)
+                 ss_kernel.LIBRARY, fa_kernel.BWD_LIBRARY,
+                 ss_kernel.BWD_LIBRARY)
     with ThreadPoolExecutor(len(libraries)) as pool:
         built = list(pool.map(lambda lib: lib.build(), libraries))
     for lib in libraries:
@@ -2732,7 +3195,9 @@ def main() -> int:
                       (kernel.LIBRARY, "weighted_sum_kernel"),
                       (rc_kernel.LIBRARY, "int8_sq_dist_kernel"),
                       (fa_kernel.LIBRARY, "flash_fwd"),
-                      (ss_kernel.LIBRARY, "selective_scan_kernel")):
+                      (ss_kernel.LIBRARY, "selective_scan_kernel"),
+                      (fa_kernel.BWD_LIBRARY, "fa_bwd"),
+                      (ss_kernel.BWD_LIBRARY, "ss_bwd")):
         for line in ptxas_lines(lib.ptxas_info, part):
             print(f"  {line}")
     # the cooperative grids: min(work, co-resident blocks)
@@ -3112,6 +3577,19 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2f}" for k, v in f2["serve"].items()))
     print(f"  phase: {time.perf_counter() - t:.1f} s")
 
+    # 10. Slice F3: LM training on the card
+    t = time.perf_counter()
+    print(f"Slice F3 ({card}): K5 and K6 backward, Model.loss gradients, "
+          f"Hymba-1.5B training")
+    f3 = slice_f3_phase(torch, np, (ops, rc_ops, fa_ops, ss_ops), fa_ref,
+                        ss_ref, get_arch, Model, rate, card)
+    tr = f3["train"]
+    print(f"  Slice F3 numbers ({card}): Hymba-1.5B at full width, "
+          f"{tr['layers']} layers: {tr['rounds_per_s']:.4f} rounds/s, "
+          f"{tr['tokens_per_s']:,.0f} trained tokens/s, peak "
+          f"{tr['peak_gib']:.2f} GiB")
+    print(f"  phase: {time.perf_counter() - t:.1f} s")
+
     # 9. records
     launches = {"fused_server": fused_counts["fused_server"],
                 "sq_dists": batched_counts["sq_dists"],
@@ -3138,7 +3616,8 @@ def main() -> int:
             "slice_e_launches_per_rank": {
                 key: counts.get(name_k, 0)
                 for key, counts in slice_e["launches"].items()},
-            "slice_f2_launches": ds["counts"][name_k]})
+            "slice_f2_launches": ds["counts"][name_k],
+            "slice_f3_launches": tr["counts"][name_k]})
         if name_k == "flash_attention":
             kernels[-1]["f2_shapes"] = [
                 dict(r, prefill_launches=(ds["counts"][name_k]
@@ -3146,6 +3625,21 @@ def main() -> int:
                                           else f2["prefill"].get(
                                               r["arch"], {}).get("launches")))
                 for r in f2["attn"].values()]
+    bwd_main = {"flash_attention_bwd": f3["attn"][ATTN_BWD_CASES[0]],
+                "selective_scan_bwd": f3["scan"][SCAN_BWD_CASES[0]]}
+    for name_k, r in bwd_main.items():
+        kernels.append({
+            "name": name_k, "route": "cuda", "source": BWD_SOURCES[name_k],
+            "replaces": BWD_REPLACES[name_k],
+            "launches": tr["counts"][name_k],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "burst_ms": r["burst_ms"], "shape": r["shape"],
+            "launches_per_round": tr["per_round"][name_k],
+            "other_shapes": [dict(rr, key=list(k)) for k, rr in (
+                f3["attn"] if name_k == "flash_attention_bwd"
+                else f3["scan"]).items() if rr is not r]})
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

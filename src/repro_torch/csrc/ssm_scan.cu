@@ -9,6 +9,11 @@
 // with h_0 = 0:
 //
 //   h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t     (per (b, d, n))
+//
+// A is shared by every batch row, or one A per group of a_rows consecutive
+// rows (row b reads A[b / a_rows]; a_rows = B is the shared case, and under
+// the clients' vmap each client's rows read that client's A), so a vmapped
+// call is still one launch.
 //   y_t = sum_n h_t[n] * C_t[n]                            (y: (B, S, di) f32)
 //
 // The D * x and z-gate terms stay outside, as in the JAX package.
@@ -156,7 +161,7 @@ __global__ void __launch_bounds__(Layout<N>::kThreads, kMinBlocks<N>)
 selective_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                       const float* __restrict__ bmat, const float* __restrict__ cmat,
                       const float* __restrict__ amat, float* __restrict__ y,
-                      int64_t seq, int64_t di) {
+                      int64_t seq, int64_t di, int64_t a_rows) {
   using L = Layout<N>;
   extern __shared__ __align__(16) float smem[];
   float* const xs = smem + L::kX;    // [buf][channel][t]
@@ -171,7 +176,7 @@ selective_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int64_t b = blockIdx.y;
   const int64_t d0 = (int64_t)blockIdx.x * kChannels;
   const int64_t d = d0 + c;
-  const float a = d < di ? amat[d * N + n] : 0.f;
+  const float a = d < di ? amat[(b / a_rows) * di * N + d * N + n] : 0.f;
   float h = 0.f;
 
   // Copies chunk `ch` into buffer `buf`; what lies past S or di reads as 0.
@@ -268,7 +273,7 @@ selective_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 template <int N>
 cudaError_t launch(const float* x, const float* dt, const float* bmat,
                    const float* cmat, const float* amat, float* y, int64_t batch,
-                   int64_t seq, int64_t di, cudaStream_t stream) {
+                   int64_t seq, int64_t di, int64_t a_rows, cudaStream_t stream) {
   using L = Layout<N>;
   const cudaError_t err = cudaFuncSetAttribute(
       selective_scan_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -276,7 +281,7 @@ cudaError_t launch(const float* x, const float* dt, const float* bmat,
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((di + kChannels - 1) / kChannels), (unsigned)batch);
   selective_scan_kernel<N><<<grid, L::kThreads, L::kBytes, stream>>>(
-      x, dt, bmat, cmat, amat, y, seq, di);
+      x, dt, bmat, cmat, amat, y, seq, di, a_rows);
   return cudaGetLastError();
 }
 
@@ -288,24 +293,26 @@ const char* ss_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Returns cudaErrorInvalidValue for a shape the kernel does not take (the
-// Python wrapper checks first).
+// amat holds batch / a_rows matrices of (di, n). Returns
+// cudaErrorInvalidValue for a shape the kernel does not take (the Python
+// wrapper checks first).
 int ss_forward(const float* x, const float* dt, const float* bmat, const float* cmat,
                const float* amat, float* y, int64_t batch, int64_t seq, int64_t di,
-               int64_t n, void* stream) {
+               int64_t n, int64_t a_rows, void* stream) {
   // di < 2^26: a chunk's row offsets (t * di, t < kChunkT) fit an int
-  if (batch < 1 || batch > 65535 || seq < 1 || di < 1 || di >= (1 << 26))
+  if (batch < 1 || batch > 65535 || seq < 1 || di < 1 || di >= (1 << 26) ||
+      a_rows < 1 || batch % a_rows)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n) {
     case 4:
-      return (int)launch<4>(x, dt, bmat, cmat, amat, y, batch, seq, di, s);
+      return (int)launch<4>(x, dt, bmat, cmat, amat, y, batch, seq, di, a_rows, s);
     case 8:
-      return (int)launch<8>(x, dt, bmat, cmat, amat, y, batch, seq, di, s);
+      return (int)launch<8>(x, dt, bmat, cmat, amat, y, batch, seq, di, a_rows, s);
     case 16:
-      return (int)launch<16>(x, dt, bmat, cmat, amat, y, batch, seq, di, s);
+      return (int)launch<16>(x, dt, bmat, cmat, amat, y, batch, seq, di, a_rows, s);
     case 32:
-      return (int)launch<32>(x, dt, bmat, cmat, amat, y, batch, seq, di, s);
+      return (int)launch<32>(x, dt, bmat, cmat, amat, y, batch, seq, di, a_rows, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

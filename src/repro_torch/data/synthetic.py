@@ -130,15 +130,24 @@ def make_lm_token_stream(vocab_size: int, seq_len: int, num_sequences: int,
     ranks = np.arange(1, v + 1)
     unigram = 1.0 / ranks ** 1.1
     unigram /= unigram.sum()
+    # rng.choice(v, size, p=unigram) is cdf.searchsorted(rng.random(size),
+    # "right") with this cdf: the same draws, without rebuilding the
+    # vocabulary-long cdf at every step
+    cdf = unigram.cumsum()
+    cdf /= cdf[-1]
+
+    def draw_unigram(n):
+        return cdf.searchsorted(rng.random(n), side="right")
+
     # each token deterministically prefers a small successor set
     succ = rng.integers(0, v, size=(v, 4))
     toks = np.empty((num_sequences, seq_len + 1), dtype=np.int64)
-    toks[:, 0] = rng.choice(v, size=num_sequences, p=unigram)
+    toks[:, 0] = draw_unigram(num_sequences)
     for t in range(seq_len):
         prev = toks[:, t]
         use_bigram = rng.random(num_sequences) < 0.8
         choice = succ[prev, rng.integers(0, 4, size=num_sequences)]
-        rand = rng.choice(v, size=num_sequences, p=unigram)
+        rand = draw_unigram(num_sequences)
         toks[:, t + 1] = np.where(use_bigram, choice, rand)
     return toks.astype(np.int32)
 

@@ -1,13 +1,15 @@
-"""Load and launch the K5 kernel of ``csrc/flash_attn.cu``.
+"""Load and launch the K5 kernel of ``csrc/flash_attn.cu`` and its backward
+of ``csrc/flash_attn_bwd.cu``.
 
 The source is built at first use into a plain-C shared library and loaded
 with ``ctypes`` (``kernels/cuda_build.py``); ``-Xptxas -v`` keeps each
 instance's registers, shared memory and spills in ``LIBRARY.ptxas_info``.
-Nothing here runs at import time. The launch function takes CUDA tensors
-that ``ops.flash_attention`` has already checked, launches on PyTorch's
-current stream, and raises if a launch was refused. bf16 inputs run the
-tensor-core instance, f32 inputs the CUDA-core one: the dtype alone picks
-it.
+Nothing here runs at import time. The launch functions take CUDA tensors
+that ``ops`` has already checked, launch on PyTorch's current stream, and
+raise if a launch was refused. bf16 inputs run the forward's tensor-core
+instance, f32 inputs the CUDA-core one: the dtype alone picks it. The
+backward runs on the CUDA cores for both (its lse and D scratch is an f32
+(B, H, S) pair allocated here).
 """
 from __future__ import annotations
 
@@ -25,6 +27,11 @@ LIBRARY = CudaLibrary("flash_attn", {
     "fa_forward": (_i32, [_p, _p, _p, _p, _i64, _i64, _i64, _i64, _i64, _i32,
                           _i32, _i64, _f32, _p]),
 }, error_fn="fa_error_string", extra_flags=("-Xptxas", "-v"))
+BWD_LIBRARY = CudaLibrary("flash_attn_bwd", {
+    "fab_error_string": (ctypes.c_char_p, [_i32]),
+    "fa_backward": (_i32, [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i64, _i64,
+                           _i64, _i64, _i64, _i32, _i32, _i64, _f32, _p]),
+}, error_fn="fab_error_string", extra_flags=("-Xptxas", "-v"))
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -44,3 +51,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k.shape[2], d, DTYPES[q.dtype], int(causal), window, d ** -0.5,
             _stream(q)), "flash_attention")
     return out
+
+
+def flash_attention_bwd(q, k, v, o, do, causal: bool, window: int):
+    """K5's backward: one call (two kernels); dq, dk, dv in q's dtype."""
+    lib = BWD_LIBRARY.load()
+    b, s, h, d = q.shape
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError("the backward reads rows as 16-byte vectors: q, k, v, "
+                         "o, do must start on a 16-byte boundary")
+    with torch.cuda.device(q.device):
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+            torch.empty_like(v)
+        stats = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device)
+        BWD_LIBRARY.check(lib, lib.fa_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats[0].data_ptr(), stats[1].data_ptr(), b, s, h, k.shape[2], d,
+            DTYPES[q.dtype], int(causal), window, d ** -0.5, _stream(q)),
+            "flash_attention_bwd")
+    return dq, dk, dv

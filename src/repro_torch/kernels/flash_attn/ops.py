@@ -1,9 +1,18 @@
-"""Public wrapper: the K5 CUDA kernel for CUDA tensors, the plain version for CPU.
+"""Public wrapper: K5 and its backward, as CUDA kernels for CUDA tensors and
+plain versions for CPU tensors.
 
 As in the other kernel packages, the device decides: CPU tensors take the
-plain version (``ref.py``), CUDA tensors launch the kernel or raise. There
-is no fallback and no switch. ``flash_attention.launches`` counts the
-kernel's launches.
+plain versions (``ref.py``), CUDA tensors launch the kernels or raise.
+There is no fallback and no switch. ``flash_attention.launches`` counts the
+forward kernel's launches, ``flash_attention_bwd.launches`` the backward's.
+
+``flash_attention`` is differentiable, under ``torch.autograd`` and under
+``torch.func`` (``grad``, ``vjp``, ``vmap``): it is an
+``autograd.Function`` whose backward is a second ``autograd.Function``,
+the backward op. Each has a ``vmap`` rule that folds the vmapped dimension
+into the batch (B) and makes one launch, so the clients of a round run as
+one call. A kernel or plain version never sees a batched or grad-tracking
+tensor: the Functions check that and raise.
 """
 from __future__ import annotations
 
@@ -12,8 +21,10 @@ import torch
 from repro_torch.kernels.flash_attn import kernel as _k
 from repro_torch.kernels.flash_attn import ref as _ref
 from repro_torch.utils.device import on_cuda
+from repro_torch.utils.fold import fold_batch, require_plain, unfold_batch
 
 HEAD_DIMS = (32, 64, 128, 160, 256)
+BWD_HEAD_DIMS = (32, 64, 128)  # the backward kernel's
 
 
 def _check_inputs(q, k, v, window: int) -> None:
@@ -34,9 +45,86 @@ def _check_inputs(q, k, v, window: int) -> None:
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if window < 0:
         raise ValueError(f"window must be >= 0; got {window}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+
+
+def _check_contiguous(**tensors) -> None:
+    for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    require_plain("flash_attention", q, k, v)
+    _check_contiguous(q=q, k=k, v=v)
+    if not on_cuda(q, k, v):
+        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    out = _k.flash_attention(q, k, v, causal, window)
+    flash_attention.launches += 1
+    return out
+
+
+def _backward(q, k, v, o, do, causal: bool, window: int):
+    require_plain("flash_attention_bwd", q, k, v, o, do)
+    o, do = o.contiguous(), do.to(q.dtype).contiguous()
+    _check_contiguous(q=q, k=k, v=v)
+    if not on_cuda(q, k, v, o, do):
+        return _ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                            window=window)
+    if q.shape[-1] not in BWD_HEAD_DIMS:
+        raise ValueError(f"the backward kernel takes head dims "
+                         f"{BWD_HEAD_DIMS}; got {q.shape[-1]}")
+    grads = _k.flash_attention_bwd(q, k, v, o, do, causal, window)
+    flash_attention_bwd.launches += 1
+    return grads
+
+
+class _FlashAttentionBwd(torch.autograd.Function):
+    """(q, k, v, o, do) -> (dq, dk, dv); not differentiable again."""
+
+    @staticmethod
+    def forward(q, k, v, o, do, causal, window):
+        return _backward(q, k, v, o, do, causal, window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("flash_attention has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, do, causal, window):
+        n = info.batch_size
+        args = [fold_batch(t, d, n) for t, d in zip((q, k, v, o, do), in_dims)]
+        grads = _FlashAttentionBwd.apply(*args, causal, window)
+        return tuple(unfold_batch(g, n) for g in grads), (0, 0, 0)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(q, k, v, causal, window):
+        return _forward(q, k, v, causal, window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window = inputs
+        ctx.save_for_backward(q, k, v, output)
+        ctx.causal, ctx.window = causal, window
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = _FlashAttentionBwd.apply(q, k, v, o, do, ctx.causal,
+                                              ctx.window)
+        return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window):
+        n = info.batch_size
+        args = [fold_batch(t, d, n) for t, d in zip((q, k, v), in_dims)]
+        out = _FlashAttention.apply(*args, causal, window)
+        return unfold_batch(out, n), 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -46,19 +134,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, S, H, D), k, v: (B, S, Hkv, D) with H % Hkv == 0 (query head h
     reads kv head h // (H // Hkv)); key j visible to query i where
     ``(not causal or i >= j) and (window == 0 or j > i - window)``. Returns
-    (B, S, H, D) in q's dtype. Any S; D in ``HEAD_DIMS``; f32 or bf16.
+    (B, S, H, D) in q's dtype. Any S; D in ``HEAD_DIMS`` (the backward
+    kernel: D in ``BWD_HEAD_DIMS``); f32 or bf16; contiguous.
     """
     _check_inputs(q, k, v, window)
-    if not on_cuda(q, k, v):
-        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    out = _k.flash_attention(q, k, v, causal, window)
-    flash_attention.launches += 1
-    return out
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window))
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: int = 0):
+    """The backward of ``flash_attention`` for the output ``o`` and its
+    cotangent ``do``: (dq, dk, dv) in the inputs' dtype."""
+    _check_inputs(q, k, v, window)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o and do must be {tuple(q.shape)}; got "
+                         f"{tuple(o.shape)} and {tuple(do.shape)}")
+    return _FlashAttentionBwd.apply(q, k, v, o, do, bool(causal), int(window))
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0
 
 
 def reset_launches() -> None:
-    """Set the wrapper's launch count to 0."""
+    """Set the wrappers' launch counts to 0."""
     flash_attention.launches = 0
+    flash_attention_bwd.launches = 0

@@ -1,4 +1,4 @@
-"""Plain-PyTorch version of the K5 attention kernel.
+"""Plain-PyTorch versions of the K5 attention kernel and of its backward.
 
 The masked, materialised softmax of the JAX package's
 ``kernels/flash_attn/ref.py::attention_ref``, in f32, taking the port's
@@ -6,6 +6,13 @@ The masked, materialised softmax of the JAX package's
 kernel). It builds the (B, H, S, S) scores the kernel exists to avoid; the
 ``ops`` wrapper runs it for CPU tensors, and the tests and
 ``chip_smoke.py`` hold the kernel against it on the card.
+
+``flash_attention_bwd_ref`` is the backward written out as formulas (not
+autograd of the forward): the softmax recomputed from q and k, ``D_i =
+rowsum(do * o)`` from the output it is given, ``ds = p * (dp - D)``, and the
+grouped heads' dk and dv summed over each group. The ``ops`` backward runs
+it for CPU tensors; the tests pin it to ``torch.autograd`` of the plain
+forward and to ``jax.grad`` of the JAX package's attention.
 """
 from __future__ import annotations
 
@@ -49,3 +56,32 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, do: torch.Tensor,
+                            causal: bool = True, window: int = 0):
+    """q, o, do: (B, S, H, D), k, v: (B, S, Hkv, D) -> (dq, dk, dv) in the
+    dtypes of q, k, v; every sum in f32."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    n_rep = h // hkv
+    kk = repeat_kv(k, n_rep).float()
+    vv = repeat_kv(v, n_rep).float()
+    qf, dof = q.float(), do.float()
+    scale = d ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, kk) * scale
+    mask = band_mask(s, k.shape[1], causal, window, q.device)
+    scores = torch.where(mask, scores, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(scores, dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vv)
+    delta = (dof * o.float()).sum(-1).permute(0, 2, 1)  # (B, H, S)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kk) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+
+    def fold(t):  # expanded head kvh * n_rep + r -> kv head kvh
+        return t.reshape(b, t.shape[1], hkv, n_rep, d).sum(3)
+
+    return dq.to(q.dtype), fold(dk).to(k.dtype), fold(dv).to(v.dtype)

@@ -22,6 +22,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Init, apply_mlp, apply_norm, init_mlp, make_norm_params
+from repro_torch.utils.remat import remat, remat_scan
 
 Params = Dict[str, Any]
 
@@ -157,18 +158,45 @@ def encoder_layer_train(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
 def run_stack_train(cfg, stacked: Params, x: torch.Tensor,
                     enc_out: Optional[torch.Tensor] = None,
                     window: Optional[int] = None):
-    """Run the layer stack in order. Returns (x, total_aux)."""
+    """Run the layer stack in order. Returns (x, total_aux).
+
+    Each layer's activations are recomputed in the backward
+    (``utils/remat.py``; the JAX package's ``remat=True`` default), so only
+    the layer boundaries are kept. ``cfg.remat_block = G`` (G > 1 dividing
+    the layer count) rematerialises groups of G layers instead
+    (``remat_scan``): only the L / G group boundaries are kept, and each
+    group's G layer boundaries come back transiently in its backward, where
+    each layer is recomputed once more. Remat changes no number.
+    """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(num_stacked(stacked)):
-        x, a = decoder_layer_train(cfg, layer_view(stacked, i), x,
-                                   enc_out=enc_out, window=window)
-        aux = aux + a
+
+    def layer(p, carry, enc):
+        h, la = decoder_layer_train(cfg, p, carry[0], enc_out=enc,
+                                    window=window)
+        return h, carry[1] + la
+
+    nl = num_stacked(stacked)
+    g = getattr(cfg, "remat_block", 0)
+    if g and g > 1 and nl % g == 0:
+        group = remat_scan(layer)
+        for i in range(0, nl, g):
+            x, aux = group([layer_view(stacked, j) for j in range(i, i + g)],
+                           (x, aux), enc_out)
+        return x, aux
+    step = remat(layer)
+    for i in range(nl):
+        x, aux = step(layer_view(stacked, i), (x, aux), enc_out)
     return x, aux
 
 
 def run_encoder_stack(cfg, stacked: Params, x: torch.Tensor) -> torch.Tensor:
+    """The encoder layers in order, each rematerialised."""
+    def layer(p, h):
+        return encoder_layer_train(cfg, p, h)
+
+    step = remat(layer)
     for i in range(num_stacked(stacked)):
-        x = encoder_layer_train(cfg, layer_view(stacked, i), x)
+        x = step(layer_view(stacked, i), x)
     return x
 
 

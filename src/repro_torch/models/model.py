@@ -9,19 +9,23 @@ function of (params, inputs); the decode cache is updated in place.
 One class covers every family of the registry (dense, MoE, hybrid, SSM,
 VLM, audio). Batch dicts:
 
-  LM     : ``{"tokens": (B, S) int}``
+  LM     : ``{"tokens": (B, S) int, "labels": (B, S) int}`` (labels for
+           ``loss`` only)
   VLM    : + ``{"patches": (B, P, d_model)}`` (stub frontend output),
            projected and prepended; the text positions come out
   audio  : + ``{"frames": (B, S_enc, d_model)}`` (stub conv/mel output)
            through the encoder; the decoder cross-attends to it
 
-``loss`` comes with LM training.
+``loss`` is the training objective: mean next-token cross-entropy plus the
+MoE's auxiliary loss, differentiable under ``torch.func`` (the layer stack
+and the chunked cross-entropy rematerialise through ``utils/remat.py``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, blocks
@@ -35,8 +39,19 @@ from repro_torch.models.layers import (
     sinusoidal_positions,
 )
 from repro_torch.utils.device import DeviceLike, resolve_device
+from repro_torch.utils.remat import remat
 
 Params = Dict[str, Any]
+
+
+def _ce_sum(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+            valid: torch.Tensor) -> torch.Tensor:
+    """Sum of the cross-entropy of one token chunk: x (T, d) through the LM
+    head, (T, V) logits local to the chunk."""
+    logits = (x @ head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[:, None].long())[:, 0]
+    return torch.sum((lse - gold) * valid)
 
 
 class Model:
@@ -135,6 +150,49 @@ class Model:
         logits are never built (the LM head sees one position)."""
         x, _ = self.hidden(params, batch, window=window)
         return self._logits(params, x[:, -1:])
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor],
+             window: Optional[int] = None):
+        """Mean next-token cross-entropy (+ MoE aux). Returns (loss,
+        {"ce", "aux"}).
+
+        With ``cfg.ce_chunk > 0`` the LM head and the cross-entropy run per
+        chunk of tokens, each chunk rematerialised, so the (T, V) logits
+        never exist; a last chunk that T does not fill is padded and masked
+        out of the sum.
+        """
+        cfg = self.cfg
+        labels = batch["labels"]
+        if not cfg.ce_chunk:
+            logits, aux = self.apply(params, batch, window=window)
+            logits = logits.float()
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+            ce = torch.mean(lse - gold)
+            return ce + aux, {"ce": ce, "aux": aux}
+
+        x, aux = self.hidden(params, batch, window=window)
+        x = apply_norm(cfg, params["final_norm"], x)
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        b, s, d = x.shape
+        t = b * s
+        chunk = min(cfg.ce_chunk, t)
+        nc = -(-t // chunk)
+        pad = nc * chunk - t
+        xf = x.reshape(t, d)
+        lf = labels.reshape(t)
+        valid = torch.ones((t,), dtype=torch.float32, device=x.device)
+        if pad:
+            xf = F.pad(xf, (0, 0, 0, pad))
+            lf = F.pad(lf, (0, pad))
+            valid = F.pad(valid, (0, pad))
+        body = remat(_ce_sum)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(nc):
+            rows = slice(i * chunk, (i + 1) * chunk)
+            total = total + body(xf[rows], head, lf[rows], valid[rows])
+        ce = total / t
+        return ce + aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------------ serve
     def init_cache(self, batch: int, cache_len: int) -> Params:

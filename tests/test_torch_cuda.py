@@ -34,6 +34,14 @@ restored. Slice E2 (a (1, 2) world of two ranks on the card): the delta ring
 runs K3 alone on its precomputed distances; ``top_k_across`` and the
 model-sharded delta codec on CUDA tensors equal their CPU results (sparse
 rows, base and decoded rows bit for bit, distances rtol 1e-5).
+Slice F3: the backward kernels of K5 and K6 against their plain backward
+formulas, every sum f32: K5 f32 rtol 1e-4 / atol 1e-4 times the largest
+of the three gradients, bf16 rtol 8e-3 / atol 4e-3 times it (both round
+f32 sums to bf16 once, one ulp of the largest gradient apart at most); K6
+rtol 1e-4 / atol 1e-5 times the largest of its five gradients; both
+bit-identical across two launches. ``torch.func.grad`` of ``Model.loss`` (Hymba smoke, f32) on
+the card, vmapped over 3 clients, against the CPU: atol 1e-4 times the
+largest gradient (cuBLAS vs CPU matmuls).
 """
 import numpy as np
 import pytest
@@ -1049,3 +1057,120 @@ def test_sharded_delta_codec_on_card_matches_cpu(cuda, card_world2):
         np.testing.assert_allclose(got["dists"], want["dists"], rtol=1e-5)
     assert card_world2[0]["e2"]["cuda"]["delta"]["dists"].tobytes() == \
         card_world2[1]["e2"]["cuda"]["delta"]["dists"].tobytes()
+
+
+def _grad_close(got, want, rtol, atol_rel):
+    """Each gradient within rtol, and atol_rel times the largest of the
+    reference gradients: where one of them vanishes (dq and dk at S = 1,
+    where the softmax is 1), both sides hold f32 roundoff of it."""
+    scale = max(float(w.float().abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=atol_rel * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,d,causal,window", [
+    (2, 200, 4, 2, 64, True, 0),
+    (1, 300, 5, 1, 64, True, 50),
+    (2, 130, 4, 4, 128, False, 0),
+    (2, 77, 4, 2, 128, True, 30),
+    (2, 129, 25, 5, 64, True, 64),
+    (3, 70, 4, 4, 32, True, 32),      # the smoke configs' head dim
+    (1, 1, 2, 1, 64, True, 0),
+])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, b, s, h, hkv,
+                                                  d, causal, window):
+    g = torch.Generator().manual_seed(s + h + d)
+    q = torch.randn(b, s, h, d, generator=g).to(cuda, dtype)
+    k = torch.randn(b, s, hkv, d, generator=g).to(cuda, dtype)
+    v = torch.randn(b, s, hkv, d, generator=g).to(cuda, dtype)
+    do = torch.randn(b, s, h, d, generator=g).to(cuda, dtype)
+    o = fa_ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    fa_ops.reset_launches()
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_bwd.launches == 1
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                       window=window)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))  # no atomics
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                          window=window)
+    if dtype == torch.float32:
+        _grad_close(got, want, 1e-4, 1e-4)
+    else:
+        _grad_close(got, want, 8e-3, 4e-3)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_kernel_names_its_head_dims(cuda):
+    q = k = v = o = torch.zeros(1, 8, 2, 160, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa_ops.flash_attention_bwd(q, k, v, o, o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,di,n,groups", [
+    (2, 100, 130, 16, 0), (4, 37, 70, 8, 4), (4, 33, 64, 32, 2),
+    (2, 1, 64, 4, 0), (3, 17, 33, 16, 3), (1, 1000, 64, 16, 0)])
+def test_selective_scan_bwd_kernel_matches_plain(cuda, b, s, di, n, groups):
+    g = torch.Generator().manual_seed(b * 1000 + s + di + n)
+    x = torch.randn(b, s, di, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, di, generator=g) - 1)
+    bb = torch.randn(b, s, n, generator=g)
+    c = torch.randn(b, s, n, generator=g)
+    a = -torch.exp(0.5 * torch.randn(*((groups,) if groups else ()), di, n,
+                                     generator=g))
+    dy = torch.randn(b, s, di, generator=g)
+    args = [t.to(cuda) for t in (x, dt, bb, c, a, dy)]
+    y = ss_ops.selective_scan(*args[:5])
+    torch.testing.assert_close(y, ss_ref.selective_scan_ref(*args[:5]),
+                               rtol=1e-4, atol=1e-5 * float(y.abs().max()))
+    ss_ops.reset_launches()
+    got = ss_ops.selective_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert ss_ops.selective_scan_bwd.launches == 1
+    again = ss_ops.selective_scan_bwd(*args)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))  # no atomics
+    _grad_close(got, ss_ref.selective_scan_bwd_ref(*args), 1e-4, 1e-5)
+
+
+@pytest.mark.cuda
+def test_model_loss_grad_on_card_matches_cpu(cuda):
+    """vmap(grad(Model.loss)) over 3 clients on the card: each kernel
+    Function launches once per layer and pass, and the gradients equal the
+    CPU's."""
+    from torch.func import grad, vmap
+
+    from repro_torch.configs import smoke_variant
+    from repro_torch.utils.tree import tree_leaves, tree_map, tree_to_device
+
+    cfg = smoke_variant(get_arch("hymba-1.5b").model)
+    cpu_model, card_model = Model(cfg, device="cpu"), Model(cfg, device=cuda)
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    clients = tree_map(lambda p: p[None] + 1e-3 * torch.randn(
+        (3,) + tuple(p.shape), generator=g), params)
+    toks = torch.randint(0, cfg.vocab_size, (3, 2, 49), generator=g)
+    batch = {"tokens": toks[..., :48], "labels": toks[..., 1:]}
+
+    def grads(model, p, b):
+        return vmap(grad(lambda p, b: model.loss(p, b)[0]))(p, b)
+
+    fa_ops.reset_launches()
+    ss_ops.reset_launches()
+    got = grads(card_model, tree_to_device(clients, cuda),
+                tree_to_device(batch, cuda))
+    torch.cuda.synchronize()
+    layers = cfg.num_layers
+    assert (fa_ops.flash_attention.launches, ss_ops.selective_scan.launches,
+            fa_ops.flash_attention_bwd.launches,
+            ss_ops.selective_scan_bwd.launches) == (2 * layers, 2 * layers,
+                                                    layers, layers)
+    want = grads(cpu_model, clients, batch)
+    scale = max(float(w.abs().max()) for w in tree_leaves(want))
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4 * scale)

@@ -17,7 +17,16 @@ The CUDA kernel is held against the plain version on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``; its bf16 instance
 carries P as two bf16 terms, and a test here shows on the CPU why one is
 not enough.
+
+The backward's plain version (``flash_attention_bwd_ref``, formulas, not
+autograd) is held at f32 against ``torch.autograd`` of the plain forward
+(rtol 1e-5, atol 1e-5 times the largest gradient: the same maths in other
+orders) and against ``jax.vjp`` of the JAX package's training attention
+(``_full_attention``; ``_sliding_window_attention`` where S is a multiple
+of its query chunk) at rtol 1e-4, atol 1e-4 times the largest gradient
+(XLA's and PyTorch's f32 sums over up to S terms).
 """
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -26,6 +35,7 @@ import torch
 
 from repro.kernels.flash_attn.ops import flash_attention as j_flash
 from repro.kernels.flash_attn.ref import attention_ref as j_ref
+from repro.models import attention as j_attn
 from repro_torch.kernels.flash_attn import ops as tops
 from repro_torch.kernels.flash_attn import ref as tref
 
@@ -162,3 +172,81 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         k = v = torch.zeros(1, 9, 2, 32)
     with pytest.raises((ValueError, TypeError)):
         tops.flash_attention(q, k, v, window=-1 if bad == "window" else 0)
+
+
+# ------------------------------------------------------------------ backward
+
+# (b, s, h, hkv, d, causal, window, q_chunk): q_chunk > 0 runs the JAX
+# package's _sliding_window_attention (S a multiple of it), else
+# _full_attention
+BWD_CASES = [
+    (2, 40, 4, 4, 32, True, 0, 0),      # causal, n_rep 1
+    (1, 48, 5, 1, 64, True, 0, 0),      # causal, n_rep 5
+    (2, 48, 10, 2, 32, True, 16, 16),   # window, n_rep 5, banded JAX path
+    (1, 37, 5, 1, 64, True, 9, 0),      # ragged S, window, n_rep 5
+    (2, 33, 4, 2, 128, False, 0, 0),    # bidirectional, D 128
+]
+
+
+def _bwd_case(b, s, h, hkv, d, seed=3):
+    rng = np.random.default_rng(seed + 7 * s + h + d)
+    return [rng.normal(size=shape).astype(np.float32) for shape in
+            ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, h, d))]
+
+
+def _close_rel(got, want, tol):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=tol,
+                               atol=tol * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,causal,window,q_chunk", BWD_CASES)
+def test_backward_plain_matches_autograd(b, s, h, hkv, d, causal, window,
+                                         q_chunk):
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_case(b, s, h, hkv, d))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    o = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    want = torch.autograd.grad(o, (q, k, v), do)
+    got = tref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                       o.detach(), do, causal=causal,
+                                       window=window)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        _close_rel(g.numpy(), w.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,causal,window,q_chunk", BWD_CASES)
+def test_backward_plain_matches_jax_grad(b, s, h, hkv, d, causal, window,
+                                         q_chunk):
+    q, k, v, do = _bwd_case(b, s, h, hkv, d)
+    n_rep = h // hkv
+
+    def j_attention(q, k, v):
+        k, v = j_attn._repeat_kv(k, n_rep), j_attn._repeat_kv(v, n_rep)
+        if q_chunk:
+            return j_attn._sliding_window_attention(q, k, v, window, q_chunk)
+        return j_attn._full_attention(q, k, v, causal=causal, window=window)
+
+    o, pullback = jax.vjp(j_attention, *map(jnp.asarray, (q, k, v)))
+    want = pullback(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    got = tops.flash_attention_bwd(tq, tk, tv,
+                                   torch.from_numpy(np.array(o)), tdo,
+                                   causal=causal, window=window)
+    for g, w in zip(got, want):
+        _close_rel(g.numpy(), w, 1e-4)
+
+
+def test_backward_kernel_head_dims_are_named():
+    """The backward kernel takes D in BWD_HEAD_DIMS; its plain version any
+    D. A card is needed to reach the kernel's check, so the CPU path shows
+    the plain version takes D = 160 and the set is what the kernel
+    builds."""
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_case(1, 16, 2, 1, 160))
+    o = tops.flash_attention(q, k, v)
+    dq, dk, dv = tops.flash_attention_bwd(q, k, v, o, do)
+    assert dq.shape == q.shape and dk.shape == k.shape
+    assert tops.BWD_HEAD_DIMS == (32, 64, 128)
+    src = (tops._k.BWD_LIBRARY.source).read_text()
+    for d in tops.BWD_HEAD_DIMS:
+        assert f"case {d}:" in src

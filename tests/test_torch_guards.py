@@ -27,7 +27,8 @@ from repro_torch.core import (
     run_sync,
 )
 from repro_torch.core.version_store import build_ring
-from repro_torch.launch import population_scale, serve, serve_fl, shard_scale
+from repro_torch.kernels.cuda_build import CudaLibrary
+from repro_torch.launch import population_scale, serve, serve_fl, shard_scale, train
 from repro_torch.models import (
     Model,
     init_lenet,
@@ -93,7 +94,12 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.sharding.specs, repro_torch.sharding.collectives, "
             "repro_torch.launch.mesh, "
             "repro_torch.launch.multihost, repro_torch.launch.shard_scale, "
-            "repro_torch.checkpoint, repro_torch.core.secure_agg; "
+            "repro_torch.checkpoint, repro_torch.core.secure_agg, "
+            "repro_torch.utils.remat, repro_torch.utils.fold, "
+            "repro_torch.optim, repro_torch.optim.schedules, "
+            "repro_torch.launch.program, repro_torch.launch.train, "
+            "repro_torch.kernels.flash_attn.kernel, "
+            "repro_torch.kernels.ssm_scan.kernel; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code],
@@ -238,6 +244,10 @@ def test_lm_entry_points_default_to_cuda_and_raise(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "hymba-1.5b", "--smoke", "--gen", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--arch", "hymba-1.5b", "--smoke", "--rounds", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.TrainLoop(cfg, FLConfig(), cohort=2, batch=1, seq=8, rounds=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         lm_params_from_jax({"w": [1.0]})
     assert Model(cfg, device="cpu").device == torch.device("cpu")
 
@@ -263,18 +273,23 @@ def _extern_c_functions(source: str) -> dict:
 
 @pytest.mark.parametrize("module", KERNEL_MODULES)
 def test_ctypes_tables_match_the_c_sources(module):
-    """Every entry of a kernel library's ctypes table names a function of the
-    ``extern "C"`` block of its ``csrc/*.cu``, with as many arguments: a
-    mismatch would otherwise show only as a crash on the card."""
-    lib = importlib.import_module(
-        f"repro_torch.kernels.{module}.kernel").LIBRARY
-    defined = _extern_c_functions(lib.source.read_text())
-    assert lib.error_fn in lib.signatures
-    for name, (_, argtypes) in lib.signatures.items():
-        assert name in defined, f"{name} is not in {lib.source.name}'s extern C block"
-        assert len(argtypes) == defined[name], (
-            f"{name}: {len(argtypes)} ctypes arguments, {defined[name]} in "
-            f"{lib.source.name}")
+    """Every entry of a kernel library's ctypes table (each ``CudaLibrary``
+    of the module: the kernel's, and its backward's where it has one) names
+    a function of the ``extern "C"`` block of its ``csrc/*.cu``, with as many
+    arguments: a mismatch would otherwise show only as a crash on the
+    card."""
+    mod = importlib.import_module(f"repro_torch.kernels.{module}.kernel")
+    libraries = [v for v in vars(mod).values() if isinstance(v, CudaLibrary)]
+    assert mod.LIBRARY in libraries
+    for lib in libraries:
+        defined = _extern_c_functions(lib.source.read_text())
+        assert lib.error_fn in lib.signatures
+        for name, (_, argtypes) in lib.signatures.items():
+            assert name in defined, \
+                f"{name} is not in {lib.source.name}'s extern C block"
+            assert len(argtypes) == defined[name], (
+                f"{name}: {len(argtypes)} ctypes arguments, {defined[name]} "
+                f"in {lib.source.name}")
 
 
 def test_extern_c_parser_counts_arguments():

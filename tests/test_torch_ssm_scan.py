@@ -6,11 +6,20 @@ scan (``ref.py``); the JAX side runs its Pallas kernel in interpret mode
 as the JAX package's own tests do. Tolerance rtol/atol 1e-5: the same f32
 recurrence, with exp and the N-term sums of XLA and of PyTorch.
 
+The backward's plain version (``selective_scan_bwd_ref``, formulas, not
+autograd) is held at f32 against ``torch.autograd`` of the plain forward
+and against ``jax.vjp`` of the JAX package's sequential scan (its oracle,
+``jax.lax.scan`` over the steps) and of the chunked associative scan of
+its ``ssm_train``, with a shared ``a`` and with one ``a`` per batch row (the
+JAX side then vmapped over the rows): rtol 1e-4, atol 1e-4 times the
+largest gradient (the reverse recurrence summed in other orders).
+
 The CUDA kernel is held against the plain version on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``. Its op order, which no
 CPU run can execute, is emulated here step for step (``_kernel_order_scan``)
 and held against the Pallas kernel, so a change of that order shows here.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -106,3 +115,109 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         x = x.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises((ValueError, TypeError)):
         tops.selective_scan(x, dt, bb, c, a)
+
+
+# ------------------------------------------------------------------ backward
+
+BWD_SHAPES = [(2, 40, 8, 4, 0), (1, 33, 5, 16, 0), (3, 17, 6, 8, 3),
+              (4, 24, 3, 32, 2)]  # (b, s, di, n, groups of a; 0 = shared)
+
+
+def _bwd_case(b, s, di, n, groups, seed=5):
+    x, dt, bb, c, a = _case(b, s, di, n, seed)
+    rng = np.random.default_rng(seed + s)
+    if groups:
+        a = (-np.exp(rng.normal(size=(groups, di, n)) * 0.5)).astype(
+            np.float32)
+    dy = rng.normal(size=(b, s, di)).astype(np.float32)
+    return x, dt, bb, c, a, dy
+
+
+def _close_rel(got, want, tol=1e-4):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=tol,
+                               atol=tol * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("b,s,di,n,groups", BWD_SHAPES)
+def test_backward_plain_matches_autograd(b, s, di, n, groups):
+    *inputs, dy = (torch.from_numpy(v) for v in _bwd_case(b, s, di, n,
+                                                          groups))
+    inputs = [t.requires_grad_() for t in inputs]
+    y = tref.selective_scan_ref(*inputs)
+    want = torch.autograd.grad(y, inputs, dy)
+    got = tops.selective_scan_bwd(*(t.detach() for t in inputs), dy)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        _close_rel(g.numpy(), w.numpy(), 1e-5)
+
+
+def _j_chunked_scan(x, dt, b, c, a, chunk):
+    """The chunked associative scan of the JAX package's ``ssm_train``
+    (src/repro/models/ssm.py), on the scan's inputs."""
+    bsz, s, di = x.shape
+    nc = s // chunk
+
+    def reshape_c(t):
+        return t.reshape(bsz, nc, chunk, *t.shape[2:]).transpose(
+            1, 0, 2, *range(3, t.ndim + 1))
+
+    def chunk_fn(h0, inp):
+        xc, dtc, bc, cc = inp
+        da = jnp.exp(dtc[..., None] * a[None, None])
+        dbx = (dtc * xc)[..., None] * bc[:, :, None, :]
+
+        def comb(left, right):
+            return left[0] * right[0], left[1] * right[0] + right[1]
+
+        a_cum, b_cum = jax.lax.associative_scan(comb, (da, dbx), axis=1)
+        h = a_cum * h0[:, None] + b_cum
+        return h[:, -1], jnp.einsum("bcdn,bcn->bcd", h, cc)
+
+    h0 = jnp.zeros((bsz, di, a.shape[-1]), jnp.float32)
+    _, ys = jax.lax.scan(jax.checkpoint(chunk_fn), h0,
+                         tuple(map(reshape_c, (x, dt, b, c))))
+    return ys.transpose(1, 0, 2, 3).reshape(bsz, s, di)
+
+
+@pytest.mark.parametrize("jax_scan", ["oracle", "chunked"])
+@pytest.mark.parametrize("b,s,di,n,groups", BWD_SHAPES)
+def test_backward_plain_matches_jax_grad(b, s, di, n, groups, jax_scan):
+    x, dt, bb, c, a, dy = _bwd_case(b, s, di, n, groups)
+    if jax_scan == "oracle":
+        scan = j_ref
+    else:
+        chunk = next(k for k in (8, s) if s % k == 0)
+
+        def scan(*args):
+            return _j_chunked_scan(*args, chunk=chunk)
+
+    if groups:  # one a per group of rows: vmap the JAX scan over the groups
+        rows = b // groups
+
+        def grouped(x, dt, bb, c, a):
+            def split(t):
+                return t.reshape(groups, rows, *t.shape[1:])
+
+            ys = jax.vmap(scan)(split(x), split(dt), split(bb), split(c), a)
+            return ys.reshape(b, *ys.shape[2:])
+
+        fn = grouped
+    else:
+        fn = scan
+    _, pullback = jax.vjp(fn, *map(jnp.asarray, (x, dt, bb, c, a)))
+    want = pullback(jnp.asarray(dy))
+    got = tops.selective_scan_bwd(*(torch.from_numpy(v) for v in
+                                    (x, dt, bb, c, a, dy)))
+    for g, w in zip(got, want):
+        _close_rel(g.numpy(), w)
+
+
+def test_per_row_a_forward_matches_separate_calls():
+    x, dt, bb, c, a, _ = (torch.from_numpy(v) for v in
+                          _bwd_case(4, 20, 6, 8, 2))
+    y = tops.selective_scan(x, dt, bb, c, a)
+    for g in range(2):
+        rows = slice(2 * g, 2 * g + 2)
+        assert torch.equal(y[rows], tops.selective_scan(
+            x[rows], dt[rows], bb[rows], c[rows], a[g]))
