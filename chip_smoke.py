@@ -193,10 +193,27 @@ Phases, in order; any failure raises and exits non-zero:
    ``remat_block`` against the plain run; (d) the training run through
    ``launch/train.py``'s ``TrainLoop``: Hymba-1.5B at full width in bf16,
    6 of 32 layers, cohort C=4, K=3, M=2, b=1, S=2048, fused, 1 warm-up and
-   5 timed rounds, every round's launches exact (K5 and K6 forward 5L,
+   3 timed rounds, every round's launches exact (K5 and K6 forward 5L,
    backward 2L, K1 1, K2-K4 0), finite fresh losses, the version one up a
    round; rounds/s, trained tokens/s, the host's batch seconds and peak
    memory; then ``launch/train.py --arch hymba-1.5b --smoke --rounds 3``
+   in a process of its own.
+
+11. Slice F4, training of the MoE, encoder-decoder and patch archs: (a)
+   K5's backward at D 160 and 256 (stablelm-12b's and gemma-7b's training
+   shapes, bf16 and f32) against its plain backward, bit-identical twice,
+   timed beside its bound and SDPA's backward; (b) ``grad`` of
+   ``Model.loss`` at full width, 1 layer (whisper-tiny: all 4 + 4), f32,
+   S=256: card against CPU (the MoE's routing compared first, then its
+   gradients under the card's routing) and, through the layers' remat as
+   the round runs them, ``vmap`` over 2 slots against separate calls (the
+   MoE's vmapped routing equal to the calls' first); (c) ``TrainLoop`` at
+   full width in bf16: whisper-tiny at full size (C=4), deepseek-moe-16b
+   at the deepest depth a 1-layer probe says fits 72 GiB (C=2; one round
+   twice from one state the same bits, a profile, the drop share),
+   stablelm-12b, gemma-7b and pixtral-12b at 1 layer (C=2), launches exact
+   every round; (d) the Hymba peak of phase 10 beside the one before the
+   memory repair; (e) ``launch/train.py --arch deepseek-moe-16b --smoke``
    in a process of its own.
 
 The last two lines of standard output are the kernels' JSON record (with
@@ -2719,7 +2736,7 @@ GRAD_S, GRAD_LAYERS, GRAD_CLIENTS, GRAD_CE_CHUNK = 512, 2, 3, 200
 # M local steps of b sequences of S tokens; 1 warm-up round, then the timed
 # ones. Depth cut to TRAIN_LAYERS of 32 so the cohort state fits the card
 TRAIN_C, TRAIN_K, TRAIN_M, TRAIN_B, TRAIN_S = 4, 3, 2, 1, 2048
-TRAIN_LAYERS, TRAIN_ROUNDS = 6, 5
+TRAIN_LAYERS, TRAIN_ROUNDS = 6, 3
 TRAIN_PEAK_LIMIT = 72 << 30
 TRAIN_PROBE_LAYERS = 2  # a short run here gives the peak's bytes a layer
 
@@ -2734,11 +2751,12 @@ def tree_err(torch, got, want) -> float:
     return err / max(float(b.float().abs().max()) for _, b in pairs)
 
 
-def attn_bwd_phase(torch, fa_ops, fa_ref, rate: float):
+def attn_bwd_phase(torch, fa_ops, fa_ref, rate: float,
+                   cases=ATTN_BWD_CASES):
     """(a) K5's backward against its plain backward; per-case records."""
     F = torch.nn.functional
     records = {}
-    for b, s, h, hkv, d, window, dtype_name in ATTN_BWD_CASES:
+    for b, s, h, hkv, d, window, dtype_name in cases:
         dtype = getattr(torch, dtype_name)
         g = torch.Generator(device="cuda").manual_seed(s + h + d + window)
         q, k, v, do = (torch.randn(b, s, n, d, device="cuda", generator=g)
@@ -2989,6 +3007,7 @@ def train_phase(torch, kernel_ops, get_arch, card: str, layers: int):
     # run's, gives the bytes a layer adds
     torch.cuda.reset_peak_memory_stats()
     probe = make_loop(TRAIN_PROBE_LAYERS, 2)
+    probe_params = probe.model.param_count(probe.state.global_params)
     for r in range(2):
         probe.round(r)
     torch.cuda.synchronize()
@@ -3037,13 +3056,17 @@ def train_phase(torch, kernel_ops, get_arch, card: str, layers: int):
     per_layer = (peak - base - probe_peak) / (layers - TRAIN_PROBE_LAYERS)
     print(f"    depth: peak {probe_peak / 2**30:.2f} GiB at "
           f"{TRAIN_PROBE_LAYERS} layers, {(peak - base) / 2**30:.2f} GiB at "
-          f"{layers}: {per_layer / 2**30:.2f} GiB a layer, so "
+          f"{layers}: {per_layer / 2**30:.2f} GiB a layer "
+          f"({(peak - base - probe_peak) / (n_params - probe_params):.2f} B a "
+          f"parameter at C = {TRAIN_C}), so "
           f"{(peak - base + per_layer) / 2**30:.2f} GiB at {layers + 1} "
           f"(limit {TRAIN_PEAK_LIMIT / 2**30:.0f} GiB)")
     total = sum(times)
     tokens = TRAIN_C * TRAIN_M * TRAIN_B * TRAIN_S
     out = dict(layers=layers, params=n_params, round_s=times,
-               batch_s=batch_times,
+               batch_s=batch_times, per_layer_gib=per_layer / 2**30,
+               bytes_per_param_a_layer=(peak - base - probe_peak)
+               / (n_params - probe_params),
                rounds_per_s=len(times) / total,
                tokens_per_s=tokens * len(times) / total,
                peak_gib=(peak - base) / 2**30, losses=losses,
@@ -3123,8 +3146,476 @@ def slice_f3_phase(torch, np, kernel_ops, fa_ref, ss_ref, get_arch, Model,
     return out
 
 
+# Slice F4 (phase 11): training of the MoE, encoder-decoder and patch archs,
+# K5's backward at D 160 and 256, and the lean cohort round
+# (a) K5's backward at stablelm-12b's and gemma-7b's training shapes: two
+# slots x b = 1 folded into B, S = 2048, causal
+F4_ATTN_BWD_CASES = ((2, 2048, 32, 8, 160, 0, "bfloat16"),
+                     (2, 2048, 32, 8, 160, 0, "float32"),
+                     (2, 2048, 16, 16, 256, 0, "bfloat16"),
+                     (2, 2048, 16, 16, 256, 0, "float32"))
+# (b) grad of Model.loss at full width, f32, S = 256 tokens (pixtral: and
+# its 256 patches), card vs CPU and vmap over F4_GRAD_SLOTS slots vs
+# separate calls, at GRAD_TOL; the MoE compared under the card's routing
+F4_GRAD_S, F4_GRAD_SLOTS = 256, 2
+F4_GRAD = (("deepseek-moe-16b", dict(num_layers=1)),
+           ("whisper-tiny", {}),
+           ("pixtral-12b", dict(num_layers=1)),
+           ("stablelm-12b", dict(num_layers=1)),
+           ("gemma-7b", dict(num_layers=1)))
+# (c) TrainLoop runs at full width, bf16, fused: (label, arch, depth, C, S);
+# depth None = full, 0 = the deepest that fits F4_PEAK_LIMIT
+F4_TRAIN = (("whisper-tiny", "whisper-tiny", None, 4, 448),
+            ("deepseek-moe-16b", "deepseek-moe-16b", 0, 2, 2048),
+            ("stablelm-12b", "stablelm-12b", 1, 2, 2048),
+            ("gemma-7b", "gemma-7b", 1, 2, 2048),
+            ("pixtral-12b", "pixtral-12b", 1, 2, 2048))
+F4_M, F4_B, F4_ROUNDS = 2, 1, 3
+F4_PEAK_LIMIT = 72 << 30
+F4_BYTES_TARGET = 50.0  # bytes a parameter a layer adds at C = 2
+HYMBA_PEAK_BEFORE_GIB = 63.11  # PERF.md §4: 6 layers before the memory repair
+
+
+class RouteHook:
+    """Wraps ``moe.route`` while active. Records each call's router
+    probabilities and expert ids (under ``vmap``, stacked with the vmapped
+    dim first); with ``forced`` (a list, one (T, k) id tensor per call in
+    order) the ids are replaced by the forced ones and the gates taken from
+    the call's own probabilities at those ids, renormalised as ``route``
+    does (the same bits where the ids agree)."""
+
+    def __init__(self, torch, moe, forced=None):
+        self.torch, self.moe, self.forced = torch, moe, forced
+        self.probs, self.ids, self.calls = [], [], 0
+
+    def __enter__(self):
+        torch, inner = self.torch, self.moe.route
+        self.inner = inner
+
+        def route(cfg, p, xf):
+            probs, gates, ids = inner(cfg, p, xf)
+            self.probs.append(self.plain(probs).detach())
+            self.ids.append(self.plain(ids))
+            if self.forced is not None:
+                ids = self.forced[self.calls]
+                gates = torch.gather(probs, 1, ids)
+                gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                            min=1e-9)
+            self.calls += 1
+            return probs, gates, ids
+
+        self.moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.inner
+
+    def plain(self, t):
+        """``t`` out of ``torch.func``'s wrappers, each vmapped dim moved
+        to the front (the outermost vmap's first)."""
+        f = self.torch._C._functorch
+        while f.is_functorch_wrapped_tensor(t):
+            bdim = f.maybe_get_bdim(t) if f.is_batchedtensor(t) else -1
+            t = f.get_unwrapped(t)
+            if bdim >= 0:
+                t = t.movedim(bdim, 0)
+        return t
+
+
+def f4_loss_batches(np, cfg, slots: int, s: int, seed: int):
+    """Each slot's loss batch (tokens, labels and the frontends' inputs),
+    numpy, from a seed."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(slots):
+        toks = rng.integers(0, cfg.vocab_size, (1, s + 1))
+        b = {"tokens": toks[:, :s], "labels": toks[:, 1:]}
+        if cfg.num_patches:
+            b["patches"] = rng.normal(
+                size=(1, cfg.num_patches, cfg.d_model)).astype(np.float32)
+        if cfg.is_encdec:
+            b["frames"] = rng.normal(
+                size=(1, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def f4_grads_phase(torch, np, fa_ops, get_arch, Model):
+    """(b) grad of Model.loss at full width, f32: card vs CPU, and vmap over
+    slots vs separate calls; the MoE's routing compared first (flips only
+    at near-ties), its gradients then held under the card's routing."""
+    from torch.func import grad, vmap
+
+    from repro_torch.models import moe
+    from repro_torch.utils.tree import tree_map
+
+    out = {}
+    for arch, kw in F4_GRAD:
+        t = time.perf_counter()
+        cfg = get_arch(arch).model.replace(param_dtype="float32",
+                                           compute_dtype="float32", **kw)
+        card, cpu = Model(cfg, device="cuda"), Model(cfg, device="cpu")
+        params = card.init(torch.Generator(device="cuda").manual_seed(5))
+        host = f4_loss_batches(np, cfg, F4_GRAD_SLOTS, F4_GRAD_S, seed=5)
+        cpu_b = [{k: torch.from_numpy(v) for k, v in b.items()} for b in host]
+        card_b = [{k: v.cuda() for k, v in b.items()} for b in cpu_b]
+        n = cfg.num_layers
+
+        def loss_grad(model):
+            return grad(lambda p, b: model.loss(p, b)[0])
+
+        fa_ops.reset_launches()
+        with RouteHook(torch, moe) as rec:
+            g_card = loss_grad(card)(params, card_b[0])
+        torch.cuda.synchronize()
+        attn = n  # whisper-tiny: its decoder's (the encoder's is plain)
+        check((fa_ops.flash_attention.launches,
+               fa_ops.flash_attention_bwd.launches) == (2 * attn, attn),
+              f"{arch} grad launches {fa_ops.flash_attention.launches}, "
+              f"{fa_ops.flash_attention_bwd.launches}")
+        flips = choices = 0
+        with RouteHook(torch, moe, forced=[i.cpu() for i in rec.ids]) as hc:
+            g_cpu = loss_grad(cpu)(to_cpu(params), cpu_b[0])
+        for probs_c, ids_c, ids in zip(hc.probs, hc.ids, rec.ids):
+            f, c, bad = route_flips(torch, cfg, probs_c, ids, ids_c)
+            check(bad == 0, f"{arch}: {bad} of {f} routing flips card vs CPU "
+                  f"are not near-ties")
+            flips, choices = flips + f, choices + c
+        err = tree_err(torch, g_card, g_cpu)
+        check(err <= GRAD_TOL, f"{arch} grad card vs CPU {err}")
+        del g_cpu
+
+        # vmap over slots, each with its own params, vs separate calls, all
+        # through the remat of the layers as the round runs them; the MoE's
+        # routing compared first: the gradients compare under one routing
+        g = torch.Generator(device="cuda").manual_seed(6)
+        slots = tree_map(lambda p: p[None] + 1e-3 * torch.randn(
+            (F4_GRAD_SLOTS,) + tuple(p.shape), device="cuda", generator=g),
+            params)
+        del params, g_card
+        alone, routes = [], []
+        for i in range(F4_GRAD_SLOTS):
+            with RouteHook(torch, moe) as r:
+                alone.append(loss_grad(card)(tree_map(lambda p: p[i], slots),
+                                             card_b[i]))
+            routes.append(r)
+        stacked = {k: torch.stack([b[k] for b in card_b]) for k in card_b[0]}
+        fa_ops.reset_launches()
+        with RouteHook(torch, moe) as rv:
+            together = vmap(loss_grad(card))(slots, stacked)
+        torch.cuda.synchronize()
+        check((fa_ops.flash_attention.launches,
+               fa_ops.flash_attention_bwd.launches) == (2 * attn, attn),
+              f"{arch} vmapped launches {fa_ops.flash_attention.launches}")
+        check(len(rv.ids) == len(routes[0].ids),
+              f"{arch}: {len(rv.ids)} routings under vmap, "
+              f"{len(routes[0].ids)} a separate call")
+        vflips = vbad = 0
+        for j, ids in enumerate(rv.ids):
+            for i, r in enumerate(routes):
+                f, _, bad = route_flips(torch, cfg, r.probs[j].cpu(), ids[i],
+                                        r.ids[j].cpu())
+                vflips, vbad = vflips + f, vbad + bad
+        check(vflips == 0, f"{arch}: the vmapped routing differs from the "
+              f"separate calls' in {vflips} token rows ({vbad} not near-ties)")
+        errs = [tree_err(torch, tree_map(lambda t: t[i], together), alone[i])
+                for i in range(F4_GRAD_SLOTS)]
+        check(max(errs) <= GRAD_TOL, f"{arch} vmap vs separate {errs}")
+        out[arch] = dict(card_vs_cpu=err, vmap_vs_calls=max(errs),
+                         flips=flips, choices=choices,
+                         s=time.perf_counter() - t)
+        print(f"    {arch:16s} {n} layer(s), f32, S={F4_GRAD_S}: grad card vs "
+              f"CPU {err:.3g} of max |grad|, vmap over {F4_GRAD_SLOTS} slots "
+              f"vs separate calls {max(errs):.3g} (limit {GRAD_TOL})"
+              + (f"; routing flips card vs CPU {flips} of {choices} choices "
+                 f"(near-ties), gradients under the card's routing; vmapped "
+                 f"routing = the separate calls'" if cfg.is_moe else "")
+              + f"; {out[arch]['s']:.1f} s")
+        del slots, alone, together, stacked, card_b, card
+        torch.cuda.empty_cache()
+    return out
+
+
+def state_digest(torch, state):
+    """Two int64 sums of the bits of every leaf of a cohort state: equal
+    digests where two runs gave the same bits (a differing bit moves both
+    by a different amount)."""
+    from repro_torch.utils.tree import tree_leaves
+
+    out, chunk = [], 1 << 24  # int64 scratch of 128 MiB at most
+    for tree in state:
+        for leaf in (tree_leaves(tree) if isinstance(tree, dict) else [tree]):
+            bits = leaf.contiguous().reshape(-1).view(
+                {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+                    leaf.element_size()])
+            s1 = s2 = 0
+            for lo in range(0, bits.numel(), chunk):
+                b = bits[lo:lo + chunk].to(torch.int64)
+                w = torch.arange(lo, lo + b.numel(), device=b.device) \
+                    % 65521 + 1
+                s1 += int(b.sum())
+                s2 += int((b * w).sum())
+            out.append((s1, s2))
+    return out
+
+
+def f4_train_run(torch, kernel_ops, cfg, cohort: int, seq: int, card: str,
+                 label: str, *, rounds: int = F4_ROUNDS, repeat=False,
+                 profile=False, drops=False):
+    """One TrainLoop run: 1 warm-up round, then ``rounds`` timed ones, each
+    round's launches exact and its fresh loss finite; returns its numbers.
+    ``repeat``: one more round twice from one state (same bits).
+    ``profile``: one round under torch.profiler. ``drops``: the share of
+    token-choices an eager loss drops at the end."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+
+    ops, rc_ops, fa_ops, ss_ops = kernel_ops
+    fl = FLConfig(buffer_size=max(1, cohort - 1), local_steps=F4_M,
+                  local_lr=5e-3, weighting="paper", server_pass_mode="fused")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    loop = train.TrainLoop(cfg, fl, cohort=cohort, batch=F4_B, seq=seq,
+                           rounds=rounds + 3, seed=0, device="cuda")
+    n_params = loop.model.param_count(loop.state.global_params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    state_gib = (torch.cuda.memory_allocated() - base) / 2**30
+    layers = cfg.num_layers
+    want = {"fused_server": 1, "sq_dists": 0, "weighted_sum": 0,
+            "int8_sq_dists": 0, "flash_attention": (2 * F4_M + 1) * layers,
+            "selective_scan": 0, "flash_attention_bwd": F4_M * layers,
+            "selective_scan_bwd": 0}
+
+    def counts():
+        return {"fused_server": ops.server_update.launches,
+                "sq_dists": ops.sq_dists.launches,
+                "weighted_sum": ops.weighted_sum.launches,
+                "int8_sq_dists": rc_ops.int8_sq_dists.launches,
+                "flash_attention": fa_ops.flash_attention.launches,
+                "selective_scan": ss_ops.selective_scan.launches,
+                "flash_attention_bwd": fa_ops.flash_attention_bwd.launches,
+                "selective_scan_bwd": ss_ops.selective_scan_bwd.launches}
+
+    for o in kernel_ops:
+        o.reset_launches()
+    before = counts()
+    times, batch_times, losses = [], [], []
+    for r in range(rounds + 1):
+        t = time.perf_counter()
+        mets = loop.round(r)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        now = counts()
+        got = {k: now[k] - before[k] for k in now}
+        before = now
+        check(got == want, f"{label} round {r}: launches {got}, want {want}")
+        loss = float(mets["fresh_loss_mean"])
+        check(math.isfinite(loss), f"{label} round {r} loss {loss}")
+        losses.append(loss)
+        if r:  # round 0 is the warm-up
+            times.append(dt)
+            batch_times.append(loop.batch_s)
+    peak = torch.cuda.max_memory_allocated() - base
+    check(peak <= F4_PEAK_LIMIT, f"{label} peak {peak / 2**30:.2f} GiB")
+    total = sum(times)
+    tokens = cohort * F4_M * F4_B * seq
+    out = dict(label=label, layers=layers, cohort=cohort, seq=seq,
+               params=n_params, rounds_per_s=len(times) / total,
+               tokens_per_s=tokens * len(times) / total, round_s=times,
+               batch_s=batch_times, peak=peak, peak_gib=peak / 2**30,
+               bytes_per_param=peak / n_params, losses=losses,
+               per_round=want, counts=counts(), init_s=init_s)
+    print(f"    {label} ({card}): {layers} layers, {n_params:,d} params, "
+          f"C={cohort} K={fl.buffer_size} M={F4_M} b={F4_B} S={seq}, bf16, "
+          f"fused: {out['rounds_per_s']:.4f} rounds/s, "
+          f"{out['tokens_per_s']:,.0f} trained tokens/s (rounds "
+          f"{', '.join(f'{x:.3f}' for x in times)} s after a warm-up of 1; "
+          f"host batches {', '.join(f'{x:.3f}' for x in batch_times)} s); "
+          f"state {state_gib:.2f} GiB, peak {out['peak_gib']:.2f} GiB, "
+          f"{out['bytes_per_param']:.2f} B a parameter; init {init_s:.1f} s; "
+          f"fresh loss by round {[round(x, 4) for x in losses]}; launches a "
+          f"round {dict((k, v) for k, v in want.items() if v)}")
+    r = rounds + 1
+    if repeat:  # the same round twice from one state: the same bits
+        state, batch = loop.state, loop.next_batch(r)
+        first, m1 = loop.step(state, batch)
+        d1 = state_digest(torch, first)
+        m1 = {k: float(v) for k, v in m1.items()}
+        del first
+        torch.cuda.empty_cache()  # the round's peak again, unfragmented
+        second, m2 = loop.step(state, batch)
+        same = (state_digest(torch, second) == d1
+                and m1 == {k: float(v) for k, v in m2.items()})
+        check(same, f"{label}: two rounds from one state differ")
+        out["repeat_same_bits"] = same
+        print(f"    {label}: one round twice from one state: the same bits "
+              f"({len(d1)} leaves of the new state, and the metrics)")
+        loop.state = second
+        del state, second
+        r += 1
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            loop.round(r)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        rows = device_events(torch, prof.key_averages())
+        busy_ms = sum(us for _, _, us in rows) / 1e3
+        out.update(profile_wall_ms=wall_ms, profile_busy_ms=busy_ms,
+                   profile_top=[(n, c, us) for n, c, us in rows[:10]])
+        print(f"    {label}: one round under torch.profiler: {wall_ms:.1f} ms "
+              f"wall, device busy {busy_ms:.1f} ms "
+              f"({100 * busy_ms / wall_ms:.0f}%) in "
+              f"{sum(c for _, c, _ in rows)} device operations; largest:")
+        for name, count, us in rows[:10]:
+            print(f"      {us / 1e3:9.3f} ms  x{count:5d}  {name[:100]}")
+        ms = sum(us for name, _, us in rows if "fa_bwd" in name) / 1e3
+        out["profile_fa_bwd_ms"] = ms
+        print(f"      K5 backward: {ms:.3f} ms ({100 * ms / busy_ms:.1f}% of "
+              f"busy)")
+        del prof
+    if drops:  # the routing of the trained global model on a fresh batch
+        batch = loop.next_batch(r)["local"]
+        one = {k: torch.as_tensor(v[0, 0]).cuda() for k, v in batch.items()}
+        kept, total_c = [], []
+        inner = moe.dispatch_plan
+
+        def recorded(cfg_, expert_ids, cap):
+            plan = inner(cfg_, expert_ids, cap)
+            kept.append(int(plan.keep.sum()))
+            total_c.append(plan.keep.numel())
+            return plan
+
+        moe.dispatch_plan = recorded
+        try:
+            with torch.no_grad():
+                loop.model.loss(loop.state.global_params, one)
+        finally:
+            moe.dispatch_plan = inner
+        out["drop_share"] = 1.0 - sum(kept) / sum(total_c)
+        print(f"    {label}: share of token-choices dropped at cf "
+              f"{cfg.moe_capacity_factor} by the trained model on a fresh "
+              f"batch of {seq} tokens: {out['drop_share']:.4f} (per layer "
+              f"{', '.join(f'{1 - k / c:.3f}' for k, c in zip(kept, total_c))})")
+    del loop
+    torch.cuda.empty_cache()
+    return out
+
+
+def f4_train_phase(torch, kernel_ops, get_arch, smoke_variant, card: str):
+    """(c) the TrainLoop runs of Slice F4 at full width."""
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.tree import tree_leaves
+
+    def n_params(cfg) -> int:  # from meta tensors: nothing allocated
+        return sum(t.numel() for t in tree_leaves(build_model(
+            cfg, "cpu").init(None)))
+
+    out = {}
+    for label, arch, depth, cohort, seq in F4_TRAIN:
+        full = get_arch(arch).model
+        if depth == 0:
+            # the deepest that fits: a 1-layer run, then the depth whose
+            # peak at the 1-layer run's bytes a parameter fits the limit
+            probe = f4_train_run(torch, kernel_ops, full.replace(num_layers=1),
+                                 cohort, seq, card, f"{label} (1-layer probe)",
+                                 rounds=1)
+            per = probe["bytes_per_param"]
+            depth = 1
+            while n_params(full.replace(num_layers=depth + 1)) * per \
+                    <= F4_PEAK_LIMIT:
+                depth += 1
+            print(f"    {label}: {per:.2f} B a parameter at 1 layer, so "
+                  f"{depth} layer(s) fit {F4_PEAK_LIMIT / 2**30:.0f} GiB")
+            out[label + "-probe"] = probe
+            cfg = full.replace(num_layers=depth)
+            r = f4_train_run(torch, kernel_ops, cfg, cohort, seq, card, label,
+                             repeat=True, profile=True, drops=True)
+            if depth > 1:
+                r["bytes_per_param_a_layer"] = (r["peak"] - probe["peak"]) / (
+                    r["params"] - probe["params"])
+                print(f"    {label}: the peak grows "
+                      f"{r['bytes_per_param_a_layer']:.2f} B a parameter a "
+                      f"layer (1 -> {depth} layers; target "
+                      f"{F4_BYTES_TARGET:.0f})")
+            out[label] = r
+            continue
+        cfg = full if depth is None else full.replace(num_layers=depth)
+        if label == "pixtral-12b":  # run at full width only where it fits
+            n = n_params(cfg)
+            per = out["stablelm-12b"]["bytes_per_param"]
+            print(f"    pixtral-12b: {n:,d} params at {depth} layer; at "
+                  f"stablelm-12b's {per:.2f} B a parameter its round would "
+                  f"peak at {n * per / 2**30:.2f} GiB (limit "
+                  f"{F4_PEAK_LIMIT / 2**30:.0f} GiB)")
+            if n * per > F4_PEAK_LIMIT:
+                cfg = smoke_variant(full)
+                label = "pixtral-12b (smoke width)"
+        out[label] = f4_train_run(torch, kernel_ops, cfg, cohort, seq, card,
+                                  label)
+    return out
+
+
+def slice_f4_phase(torch, np, kernel_ops, fa_ref, get_arch, smoke_variant,
+                   Model, rate: float, card: str, hymba_train):
+    """Slice F4: K5's backward at D 160 / 256, gradients of the MoE, the
+    encoder-decoder, the patch and the D 160 / 256 archs, their training
+    runs, the Hymba run's memory against its peak before the memory
+    repair, the launcher."""
+    _, _, fa_ops, _ = kernel_ops
+    out = {}
+    t = time.perf_counter()
+    print("  (a) K5's backward at D 160 and 256 (median of 10 calls; burst "
+          "of 20):")
+    out["attn"] = attn_bwd_phase(torch, fa_ops, fa_ref, rate,
+                                 cases=F4_ATTN_BWD_CASES)
+    print(f"  (a): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    print("  (b) gradients of Model.loss at full width:")
+    out["grads"] = f4_grads_phase(torch, np, fa_ops, get_arch, Model)
+    print(f"  (b): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    print("  (c) training runs:")
+    out["train"] = f4_train_phase(torch, kernel_ops, get_arch, smoke_variant,
+                                  card)
+    print(f"  (c): {time.perf_counter() - t:.1f} s")
+    if hymba_train is not None:
+        print(f"  (d) Hymba-1.5B, {hymba_train['layers']} layers, C = "
+              f"{TRAIN_C} (phase 10(d), after the memory repair): peak "
+              f"{hymba_train['peak_gib']:.2f} GiB (before the memory repair: "
+              f"{HYMBA_PEAK_BEFORE_GIB} GiB), {hymba_train['per_layer_gib']:.2f} "
+              f"GiB a layer ({hymba_train['bytes_per_param_a_layer']:.2f} B a "
+              f"parameter; before: 8.88 GiB, 196 B), launches exact every "
+              f"round")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "deepseek-moe-16b", "--smoke", "--rounds", "3"], cwd=str(ROOT),
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"launch/train.py exited {proc.returncode}: {proc.stderr[-2000:]}")
+    print(f"  (e) launch/train.py --arch deepseek-moe-16b --smoke --rounds 3 "
+          f"on the card: exit 0, {time.perf_counter() - t:.1f} s; "
+          f"{(proc.stderr.strip().splitlines() or [''])[-1]}")
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
+    # a full-width training round fills most of the card in blocks of a few
+    # GiB; without expandable segments the cache fragments and a later
+    # round's flat vector may find no free block (launch/train.py sets it
+    # too)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -3141,7 +3632,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.checkpoint import load_checkpoint, save_checkpoint
-    from repro_torch.configs import PAPER_FL, get_arch
+    from repro_torch.configs import PAPER_FL, get_arch, smoke_variant
     from repro_torch.configs.base import FLConfig
     from repro_torch.core import run_async, run_sync
     from repro_torch.core import version_store
@@ -3200,6 +3691,13 @@ def main() -> int:
                       (ss_kernel.BWD_LIBRARY, "ss_bwd")):
         for line in ptxas_lines(lib.ptxas_info, part):
             print(f"  {line}")
+    optin = getattr(torch.cuda.get_device_properties(0),
+                    "shared_memory_per_block_optin", None)
+    print("  K5 backward's dynamic shared memory a block (dQ, dK/dV), of "
+          f"{optin if optin is None else format(optin, ',d')} B opt-in: "
+          + ", ".join(
+              f"D={d} {a:,d} / {b:,d} B" for d in fa_ops.HEAD_DIMS
+              for a, b in [fa_kernel.bwd_smem_bytes(d)]))
     # the cooperative grids: min(work, co-resident blocks)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for what, blocks in (
@@ -3590,6 +4088,23 @@ def main() -> int:
           f"{tr['peak_gib']:.2f} GiB")
     print(f"  phase: {time.perf_counter() - t:.1f} s")
 
+    # 11. Slice F4: training of the MoE, encoder-decoder, patch and
+    # D 160 / 256 archs
+    t = time.perf_counter()
+    print(f"Slice F4 ({card}): K5's backward at D 160 / 256, gradients and "
+          f"training of deepseek-moe-16b, whisper-tiny, pixtral-12b, "
+          f"stablelm-12b, gemma-7b")
+    f4 = slice_f4_phase(torch, np, (ops, rc_ops, fa_ops, ss_ops), fa_ref,
+                        get_arch, smoke_variant, Model, rate, card, tr)
+    print(f"  Slice F4 numbers ({card}): "
+          + "; ".join(f"{r['label']} {r['layers']} layers C={r['cohort']}: "
+                      f"{r['rounds_per_s']:.4f} rounds/s, "
+                      f"{r['tokens_per_s']:,.0f} tokens/s, peak "
+                      f"{r['peak_gib']:.2f} GiB, "
+                      f"{r['bytes_per_param']:.2f} B/param"
+                      for k, r in f4["train"].items() if "probe" not in k))
+    print(f"  phase: {time.perf_counter() - t:.1f} s")
+
     # 9. records
     launches = {"fused_server": fused_counts["fused_server"],
                 "sq_dists": batched_counts["sq_dists"],
@@ -3617,7 +4132,9 @@ def main() -> int:
                 key: counts.get(name_k, 0)
                 for key, counts in slice_e["launches"].items()},
             "slice_f2_launches": ds["counts"][name_k],
-            "slice_f3_launches": tr["counts"][name_k]})
+            "slice_f3_launches": tr["counts"][name_k],
+            "slice_f4_launches": {k: rr["counts"][name_k]
+                                  for k, rr in f4["train"].items()}})
         if name_k == "flash_attention":
             kernels[-1]["f2_shapes"] = [
                 dict(r, prefill_launches=(ds["counts"][name_k]
@@ -3640,6 +4157,11 @@ def main() -> int:
             "other_shapes": [dict(rr, key=list(k)) for k, rr in (
                 f3["attn"] if name_k == "flash_attention_bwd"
                 else f3["scan"]).items() if rr is not r]})
+        if name_k == "flash_attention_bwd":
+            kernels[-1]["f4_shapes"] = [dict(rr, key=list(k)) for k, rr in
+                                        f4["attn"].items()]
+            kernels[-1]["slice_f4_launches"] = {
+                k: rr["counts"][name_k] for k, rr in f4["train"].items()}
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -31,11 +31,7 @@ from repro_torch.core.round_body import (
     make_round_body,
     make_streaming_round_body,
 )
-from repro_torch.core.server_pass import (
-    flatten_stacked,
-    flatten_tree,
-    make_flat_spec,
-)
+from repro_torch.core.server_pass import make_flat_spec
 from repro_torch.utils.device import DeviceLike, resolve_device
 from repro_torch.utils.tree import (
     tree_leaves,
@@ -107,10 +103,10 @@ def make_cohort_step(loss_fn: Callable, fl: FLConfig, *,
         arrival = torch.as_tensor(batch["arrival"]).to(dev, torch.float32)
         tau = (state.version - state.client_version).to(torch.float32)
 
-        # the paper's round: local training + eq. 3/4/5 (shared body)
+        # the paper's round: local training + eq. 3/4/5 (shared body); the
+        # body flattens x and the bases itself, after the local training
         new_global, end_params, info = bodies[spec](
-            params, flatten_tree(spec, params),
-            flatten_stacked(spec, state.client_base),
+            params, None, state.client_base,
             tree_to_device(batch["local"], dev),
             tree_to_device(batch["probe"], dev),
             torch.as_tensor(batch["data_sizes"]).to(dev, torch.float32), tau,

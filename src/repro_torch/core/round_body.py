@@ -56,6 +56,7 @@ from repro_torch.core.server_pass import (
     ShardedFlatSpec,
     apply_server_round,
     flatten_stacked,
+    flatten_stacked_sub,
     flatten_tree,
     local_columns,
     resolve_mode,
@@ -72,7 +73,7 @@ from repro_torch.core.weighting import (
 from repro_torch.sharding.collectives import all_gather_cat
 from repro_torch.sharding.specs import DATA_AXIS, MODEL_AXIS, mesh_axis_size
 from repro_torch.utils.device import DeviceLike
-from repro_torch.utils.tree import tree_leaves, tree_map, tree_sub
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def make_round_body(loss_fn: Callable, fl: FLConfig, device: DeviceLike,
@@ -80,21 +81,25 @@ def make_round_body(loss_fn: Callable, fl: FLConfig, device: DeviceLike,
     """Build the round body for tensors on ``device`` with params laid out
     as ``spec`` (``make_flat_spec``; the layout never changes in a run).
 
-    Returns ``body(params, x, bases_flat, batch, probe, data_sizes, taus,
+    Returns ``body(params, x, bases, batch, probe, data_sizes, taus,
     sq_dists=None, *, client_params=None, arrival_mask=None) ->
     (new_params, new_x or end_params, info)``: ``x`` is the (n_padded,)
-    flat vector of ``params`` and bases come in as the (K, n_padded) flat
-    rows the version ring stores. On the engine path (``client_params``
-    None) the flat new-params vector ``new_x`` goes back out, so the ring
-    never leaves flat space; ``sq_dists`` carries eq. 3 distances a
-    compressed ring codec computed (see ``apply_server_round``). With
+    flat vector of ``params`` and ``bases`` the (K, n_padded) flat rows the
+    version ring stores. On the engine path (``client_params`` None) the
+    flat new-params vector ``new_x`` goes back out, so the ring never
+    leaves flat space; ``sq_dists`` carries eq. 3 distances a compressed
+    ring codec computed (see ``apply_server_round``). With
     ``client_params`` (the cohort; (K, ...) leaves) the K slots train from
     their current local state, upload ``base - end`` and hand back their
     ``end_params``; ``arrival_mask`` (K,) {0, 1} goes to the server pass.
+    There ``bases`` may also be the (K, ...) tree of the pulled bases and
+    ``x`` None: the upload is then taken from the tree leaf by leaf, and the
+    flat bases and ``x`` are made only after the local training, so no
+    f32 copy of the model is live through the backward.
 
     ``mesh`` shards the round (module docstring); ``spec`` is then made on
-    it (``make_flat_spec(..., mesh)``). ``bases_flat`` may be whole rows or,
-    under a model-sharded spec, this rank's slice of them (the sharded
+    it (``make_flat_spec(..., mesh)``). Flat ``bases`` may be whole rows
+    or, under a model-sharded spec, this rank's slice of them (the sharded
     ring's rows); ``x`` and the returned ``new_x`` are whole, and the info
     is the same on every rank.
     """
@@ -111,9 +116,10 @@ def make_round_body(loss_fn: Callable, fl: FLConfig, device: DeviceLike,
                    if isinstance(spec, ShardedFlatSpec) else None)
     lo, hi = shard_bounds(spec)  # all of the flat vector without a mesh
 
-    def body(params, x, bases_flat, batch, probe, data_sizes, taus,
+    def body(params, x, bases, batch, probe, data_sizes, taus,
              sq_dists=None, *, client_params=None, arrival_mask=None):
-        k = bases_flat.shape[0]
+        flat = isinstance(bases, torch.Tensor)
+        k = (bases if flat else tree_leaves(bases)[0]).shape[0]
         if data_shards > 1 and k % data_shards:
             warnings.warn(
                 f"K={k} clients do not divide the data axis ({data_shards} "
@@ -121,39 +127,50 @@ def make_round_body(loss_fn: Callable, fl: FLConfig, device: DeviceLike,
                 "data). Pick K a multiple of the data-axis size to shard it.",
                 RuntimeWarning, stacklevel=2)
         split = data_group is not None and k % data_shards == 0
-        start = bases_flat
+        rows = slice(None)
         if split:  # this data row's K/d clients
             rows = slice(data_row * k // data_shards,
                          (data_row + 1) * k // data_shards)
-            batch, probe, start = tree_map(lambda t: t[rows],
-                                           (batch, probe, bases_flat))
+            batch, probe = tree_map(lambda t: t[rows], (batch, probe))
             if client_params is not None:
                 client_params = tree_map(lambda t: t[rows], client_params)
-        sliced = bases_flat.shape[1] != spec.n_padded
-        if sliced:  # the whole rows these clients train from
-            start = all_gather_cat(start, model_group, dim=1)
+        sliced = flat and bases.shape[1] != spec.n_padded
+
+        def pulled():  # the rows' bases as a tree
+            if not flat:
+                return tree_map(lambda t: t[rows], bases)
+            start = bases[rows]
+            if sliced:  # the whole rows these clients train from
+                start = all_gather_cat(start, model_group, dim=1)
+            return unflatten_stacked(spec, start)
+
         if client_params is None:
-            deltas = clients_update(unflatten_stacked(spec, start), batch)
+            deltas = flatten_stacked(spec, clients_update(pulled(), batch))
         else:
             # in-flight slots advance M steps from their CURRENT local state;
             # the upload is the cumulative delta from the pulled base
             end_params = tree_map(lambda c, d: (c - d).to(c.dtype),
                                   client_params,
                                   clients_update(client_params, batch))
-            deltas = tree_sub(unflatten_stacked(spec, start), end_params)
+            deltas = flatten_stacked_sub(spec, pulled(), end_params)
             if split:
                 end_params = tree_map(
                     lambda t: all_gather_cat(t, data_group), end_params)
         losses = vmap(lambda pb: loss_fn(params, pb)[0])(probe)
         losses = losses.to(torch.float32)
-        deltas = local_columns(spec, flatten_stacked(spec, deltas))
+        deltas = local_columns(spec, deltas)
         if split:
             deltas = all_gather_cat(deltas, data_group)
             losses = all_gather_cat(losses, data_group)
+        if not flat:  # the flat bases, made after the local training
+            bases = flatten_stacked(spec, bases)
+        if x is None:
+            x = flatten_tree(spec, params)
         new_x, info = apply_server_round(
-            x[lo:hi], bases_flat if sliced else local_columns(spec, bases_flat),
+            x[lo:hi], bases if sliced else local_columns(spec, bases),
             deltas, losses, data_sizes, taus, fl, arrival_mask=arrival_mask,
             mode=mode, sq_dists=sq_dists, mesh=mesh)
+        del x, bases, deltas
         if model_group is not None:
             new_x = all_gather_cat(new_x, model_group)
         new_params = unflatten_like(spec, new_x)
@@ -167,6 +184,20 @@ def make_round_body(loss_fn: Callable, fl: FLConfig, device: DeviceLike,
         return new_params, new_x, info
 
     return body
+
+
+def round_bytes(params: Any, cohort: int) -> int:
+    """The device memory the cohort path of ``make_round_body`` holds at
+    its peak, in the server pass, over ``params`` (a tree; meta tensors
+    will do): the global params and the pass's three f32 vectors (x, the
+    update, the new x), and per slot its params, its pulled base, its end
+    params and its f32 base and delta rows. At bf16 that is 14 + 14 C bytes
+    a parameter (``PERF.md`` §5 holds it against the card's peak)."""
+    total = 0
+    for leaf in tree_leaves(params):
+        p = leaf.element_size()
+        total += leaf.numel() * (p + 12 + cohort * (3 * p + 8))
+    return total
 
 
 def make_ring_round(loss_fn: Callable, fl: FLConfig, device: DeviceLike,

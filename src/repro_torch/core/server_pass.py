@@ -48,7 +48,6 @@ import functools
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.func import vmap
 
 from repro_torch.configs.base import FLConfig
@@ -155,20 +154,47 @@ def local_columns(spec, mat: torch.Tensor) -> torch.Tensor:
     return mat[..., lo:hi].contiguous()
 
 
+def _flatten_into(out: torch.Tensor, n: int, parts) -> torch.Tensor:
+    """Write each (lead..., size) part, converted to f32, straight into its
+    columns of ``out`` (lead..., n_padded) and zero the pad: the layout of
+    ``cat`` + ``F.pad`` over f32 copies, with no copy but the buffer."""
+    off = 0
+    for part in parts:
+        size = part.shape[-1]
+        out[..., off:off + size].copy_(part)
+        off += size
+    out[..., n:].zero_()
+    return out
+
+
 def flatten_tree(spec: FlatSpec, tree: Any) -> torch.Tensor:
     """tree -> (n_padded,) f32, zero-padded (distance- and sum-neutral)."""
-    flat = torch.cat([x.to(torch.float32).reshape(-1)
-                      for x in tree_leaves(tree)])
-    return F.pad(flat, (0, spec.n_padded - spec.n))
+    leaves = tree_leaves(tree)
+    out = torch.empty((spec.n_padded,), dtype=torch.float32,
+                      device=leaves[0].device)
+    return _flatten_into(out, spec.n, (x.reshape(-1) for x in leaves))
 
 
 def flatten_stacked(spec: FlatSpec, stacked: Any) -> torch.Tensor:
     """tree with (K, ...) leaves -> (K, n_padded) f32."""
     leaves = tree_leaves(stacked)
     k = leaves[0].shape[0]
-    flat = torch.cat([x.to(torch.float32).reshape(k, -1) for x in leaves],
-                     dim=1)
-    return F.pad(flat, (0, spec.n_padded - spec.n))
+    out = torch.empty((k, spec.n_padded), dtype=torch.float32,
+                      device=leaves[0].device)
+    return _flatten_into(out, spec.n, (x.reshape(k, -1) for x in leaves))
+
+
+def flatten_stacked_sub(spec: FlatSpec, a: Any, b: Any) -> torch.Tensor:
+    """``flatten_stacked(spec, tree_sub(a, b))``: each leaf's ``a - b`` is
+    taken in the leaves' dtype, as ``tree_sub`` does, and written into the
+    f32 rows before the next is made, so one leaf's difference is the only
+    scratch."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    k = la[0].shape[0]
+    out = torch.empty((k, spec.n_padded), dtype=torch.float32,
+                      device=la[0].device)
+    return _flatten_into(out, spec.n, (torch.sub(x, y).reshape(k, -1)
+                                       for x, y in zip(la, lb)))
 
 
 def unflatten_stacked(spec: FlatSpec, mat: torch.Tensor) -> Any:
@@ -182,10 +208,18 @@ def unflatten_stacked(spec: FlatSpec, mat: torch.Tensor) -> Any:
 
 
 def unflatten_like(spec: FlatSpec, vec: torch.Tensor) -> Any:
-    """(n_padded,) or (n,) f32 -> tree with the spec's shapes and dtypes."""
+    """(n_padded,) or (n,) f32 -> tree with the spec's shapes and dtypes.
+
+    Where every leaf is f32 the leaves are views of ``vec``; in a mixed
+    tree (bf16 weights, f32 norms) the f32 leaves are copied, so that a few
+    small leaves do not keep the whole f32 vector alive beside the cast
+    params."""
+    mixed = any(dt != vec.dtype for dt in spec.dtypes)
     leaves, off = [], 0
     for shape, dtype, size in zip(spec.shapes, spec.dtypes, spec.sizes):
-        leaves.append(vec[off:off + size].reshape(shape).to(dtype))
+        leaf = vec[off:off + size].reshape(shape)
+        leaves.append(leaf.clone() if mixed and dtype == vec.dtype
+                      else leaf.to(dtype))
         off += size
     return tree_unflatten(list(spec.paths), leaves)
 

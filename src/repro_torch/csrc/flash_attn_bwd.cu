@@ -47,11 +47,22 @@
 // d: the 8 lanes of a quarter warp read 8 consecutive padded rows, which
 // fall in 8 distinct 4-bank groups. Products that reduce over rows (dV +=
 // P^T dO, dK += dS^T Q, dQ += dS K) give each thread 4 consecutive output
-// rows x D / 16 columns (4 consecutive of each 64-column panel; 2 at D = 32)
-// and read float4s (float2s) along the output columns. The work is
-// CUDA-core FMAs: on these tiles a thread issues two float4 loads from
-// shared memory per 16 FMAs, so shared memory, not the FMA pipes, is the
-// limit. wgmma/TMA come with the redesign.
+// rows x D / 16 columns, split in output panels: 4 consecutive columns of
+// each 64-column panel where 64 divides D (64, 128, 256), else 2 of each
+// 32-column panel (32, 160: five panels, 10 columns a thread), read as
+// float4s (float2s) along the output columns. The work is CUDA-core FMAs:
+// on these tiles a thread issues two float4 loads from shared memory per
+// 16 FMAs, so shared memory, not the FMA pipes, is the limit. wgmma/TMA
+// come with the redesign.
+//
+// D = 256 does not fit whole: four padded 64 x 256 f32 tiles alone are
+// 266,240 B, over the 232,448 B a block may opt into. There the tiles a
+// block walks (K and V in the dQ kernel, Q and dO in the dK/dV kernel) are
+// staged in 64-column chunks, one output panel each, while the block's own
+// rows stay whole: S and dP add up the chunks' partial products in d order
+// (the same chain of FMAs as a whole tile), and dQ, dK, dV accumulate
+// panel by panel as each chunk is loaded again. Shared memory, D = 160
+// (whole) and 256 (chunks): 185,600 B (dQ) and 203,264 B (dK/dV) each.
 //
 // Bound on an H100 SXM at Hymba-1.5B's training shape (B = 2 x 1, S = 2048,
 // H = 25, Hkv = 5, D = 64, window 1024): operations. 10 * D FLOP a visible
@@ -60,12 +71,14 @@
 // twice, once in each kernel, and the dq pass's lse pass) on 64 x 64 tiles
 // of the band.
 //
-// Shapes: any B (<= 65535), S, H, Hkv with H % Hkv == 0; D in {32, 64, 128}
-// (32: the smoke configs' head dim).
+// Shapes: any B (<= 65535), S, H, Hkv with H % Hkv == 0; D in {32, 64, 128,
+// 160, 256} (32: the smoke configs' head dim; 160: stablelm-12b; 256:
+// gemma-7b).
 //
 // Interface: plain C, loaded with ctypes. fa_backward launches both
 // kernels on the stream it is given, allocates nothing (the caller passes
-// the (B, H, S) f32 lse and D scratch) and returns the first CUDA error.
+// the (B, H, S) f32 lse and D scratch) and returns the first CUDA error;
+// fa_bwd_smem_bytes reports each kernel's shared memory a block.
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -I csrc -o libflash_attn_bwd.so flash_attn_bwd.cu
 
@@ -82,15 +95,25 @@ constexpr float kNegInf = -1e30f;
 
 template <int D>
 struct Smem {
+  // output panels: a thread holds kPer consecutive columns of each
+  static constexpr int kPanel = D % 64 == 0 ? 64 : 32;
+  static constexpr int kPer = kPanel / 16;
+  static constexpr int kPanels = D / kPanel;
+  // the walked tiles are staged kChunk columns at a time (D = 256 only)
+  static constexpr int kChunk = D > 160 ? 64 : D;
+  static constexpr int kChunks = D / kChunk;
+  static_assert(kChunks == 1 || kChunk == kPanel, "a staged chunk is one panel");
   static constexpr int kLd = D + 4;            // padded row of a 64 x D tile
+  static constexpr int kLdc = kChunk + 4;      // padded row of a staged chunk
   static constexpr int kTileF = kTile * kLd;   // floats of a 64 x D tile
+  static constexpr int kChunkF = kTile * kLdc;  // floats of a staged chunk
   static constexpr int kScoreF = kTile * kLdp;  // floats of a 64 x 64 tile
-  // dq kernel: Q, dO, K, V tiles, dS^T, D of the rows
+  // dq kernel: Q, dO tiles, K, V chunks, dS^T, D of the rows
   static constexpr size_t kDqBytes =
-      sizeof(float) * (4 * kTileF + kScoreF + kTile);
-  // dkdv kernel: K, V, Q, dO tiles, P, dS, lse and D of the rows
+      sizeof(float) * (2 * kTileF + 2 * kChunkF + kScoreF + kTile);
+  // dkdv kernel: K, V tiles, Q, dO chunks, P, dS, lse and D of the rows
   static constexpr size_t kDkdvBytes =
-      sizeof(float) * (4 * kTileF + 2 * kScoreF + 2 * kTile);
+      sizeof(float) * (2 * kTileF + 2 * kChunkF + 2 * kScoreF + 2 * kTile);
 };
 
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -117,37 +140,59 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
-// Rows row0 .. row0 + 63 of one head (src points at its (b, 0, head, 0);
-// consecutive positions are `stride` elements apart) into a padded 64 x D
-// f32 tile; rows past S read as zeros.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t row0,
-                                          int64_t seq, int64_t stride) {
-  constexpr int kQuads = D / 4;
+// Columns col0 .. col0 + W - 1 of rows row0 .. row0 + 63 of one head (src
+// points at its (b, 0, head, 0); consecutive positions are `stride`
+// elements apart) into a 64 x W f32 tile whose rows are LD floats apart;
+// rows past S read as zeros.
+template <int W, int LD, typename T>
+__device__ __forceinline__ void load_cols(float* dst, const T* src, int64_t row0,
+                                          int64_t seq, int64_t stride, int col0) {
+  constexpr int kQuads = W / 4;
   for (int e = threadIdx.x; e < kTile * kQuads; e += kThreads) {
     const int r = e / kQuads, c = (e % kQuads) * 4;
     const int64_t s = row0 + r;
-    const float4 v = s < seq ? load4(src + s * stride + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-    store4(dst + r * Smem<D>::kLd + c, v);
+    const float4 v =
+        s < seq ? load4(src + s * stride + col0 + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    store4(dst + r * LD + c, v);
   }
 }
 
-// acc[r][c] = A[ty + 16 r] . B[tx + 16 c] over d (both padded 64 x D tiles)
-template <int D>
+// A whole padded 64 x D tile
+template <int D, typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t row0,
+                                          int64_t seq, int64_t stride) {
+  load_cols<D, Smem<D>::kLd>(dst, src, row0, seq, stride, 0);
+}
+
+// Chunk cc of a 64 x D tile, into a padded 64 x kChunk buffer
+template <int D, typename T>
+__device__ __forceinline__ void load_chunk(float* dst, const T* src, int64_t row0,
+                                           int64_t seq, int64_t stride, int cc) {
+  using L = Smem<D>;
+  load_cols<L::kChunk, L::kLdc>(dst, src, row0, seq, stride, cc * L::kChunk);
+}
+
+template <int R, int C>
+__device__ __forceinline__ void zero(float (&acc)[R][C]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
+}
+
+// acc[r][c] += A[ty + 16 r] . B[tx + 16 c] over W columns (rows LDA and LDB
+// floats apart); over the chunks of d in order, the same chain of FMAs as
+// one whole tile
+template <int W, int LDA, int LDB>
 __device__ __forceinline__ void rows_dot(float (&acc)[4][4], const float* a,
                                          const float* b, int ty, int tx) {
-  constexpr int kLd = Smem<D>::kLd;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
 #pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
+  for (int d = 0; d < W; d += 4) {
     float4 av[4], bv[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) av[r] = load4(a + (ty + 16 * r) * kLd + d);
+    for (int r = 0; r < 4; ++r) av[r] = load4(a + (ty + 16 * r) * LDA + d);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) bv[c] = load4(b + (tx + 16 * c) * kLd + d);
+    for (int c = 0; c < 4; ++c) bv[c] = load4(b + (tx + 16 * c) * LDB + d);
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -162,44 +207,42 @@ __device__ __forceinline__ void rows_dot(float (&acc)[4][4], const float* a,
   }
 }
 
-// The thread's output columns of a 64 x D tile, D / 16 of them: 4 tx .. 4 tx
-// + 3 of each 64-column panel (D >= 64), or 2 tx, 2 tx + 1 (D = 32).
-template <int D>
-__device__ __forceinline__ int out_col(int tx, int e) {
-  return D >= 64 ? 4 * tx + 64 * (e / 4) + e % 4 : 2 * tx + e;
-}
-
-// acc[u][e] += sum_i P[i][4 ty + u] * M[i][out_col(tx, e)]: P a 64 x 64 tile
-// (rows i), M a padded 64 x D tile (rows i); the thread's output rows are
-// 4 ty .. 4 ty + 3.
-template <int D>
+// acc[u][kPer * c + e] += sum_i P[i][4 ty + u] * M[i][col] for the output
+// panels c in [lo, hi), col = kPer * tx + kPanel * c + e: P a 64 x 64 tile
+// (rows i), M (rows i, LDM floats apart) holds those panels from its column
+// 0 on; the thread's output rows are 4 ty .. 4 ty + 3.
+template <int D, int LDM>
 __device__ __forceinline__ void cols_accumulate(float (&acc)[4][D / 16],
                                                 const float* p, const float* m,
-                                                int ty, int tx) {
-  constexpr int kLd = Smem<D>::kLd;
+                                                int lo, int hi, int ty, int tx) {
+  using L = Smem<D>;
+  constexpr int kPer = L::kPer;
 #pragma unroll 4
   for (int i = 0; i < kTile; ++i) {
     const float4 pv = load4(p + i * kLdp + 4 * ty);
     const float pu[4] = {pv.x, pv.y, pv.z, pv.w};
-    float mv[D / 16];
-    if constexpr (D >= 64) {
 #pragma unroll
-      for (int cc = 0; cc < D / 64; ++cc) {
-        const float4 q = load4(m + i * kLd + 4 * tx + 64 * cc);
-        mv[4 * cc] = q.x;
-        mv[4 * cc + 1] = q.y;
-        mv[4 * cc + 2] = q.z;
-        mv[4 * cc + 3] = q.w;
+    for (int c = 0; c < L::kPanels; ++c) {
+      if (c < lo || c >= hi) continue;
+      const float* row = m + i * LDM + kPer * tx + L::kPanel * (c - lo);
+      float mv[kPer];
+      if constexpr (kPer == 4) {
+        const float4 q = load4(row);
+        mv[0] = q.x;
+        mv[1] = q.y;
+        mv[2] = q.z;
+        mv[3] = q.w;
+      } else {
+        const float2 q = *reinterpret_cast<const float2*>(row);
+        mv[0] = q.x;
+        mv[1] = q.y;
       }
-    } else {
-      const float2 q = *reinterpret_cast<const float2*>(m + i * kLd + 2 * tx);
-      mv[0] = q.x;
-      mv[1] = q.y;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int e = 0; e < kPer; ++e)
+          acc[u][kPer * c + e] = fmaf(pu[u], mv[e], acc[u][kPer * c + e]);
     }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int e = 0; e < D / 16; ++e) acc[u][e] = fmaf(pu[u], mv[e], acc[u][e]);
   }
 }
 
@@ -213,20 +256,21 @@ template <int D, typename T>
 __device__ __forceinline__ void store_rows(T* dst, const float (&acc)[4][D / 16],
                                            int64_t row0, int64_t seq, int64_t stride,
                                            float mul, int ty, int tx) {
+  using L = Smem<D>;
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     const int64_t s = row0 + 4 * ty + u;
     if (s >= seq) continue;
-    if constexpr (D >= 64) {
 #pragma unroll
-      for (int cc = 0; cc < D / 64; ++cc)
-        store4(dst + s * stride + 4 * tx + 64 * cc,
-               make_float4(acc[u][4 * cc] * mul, acc[u][4 * cc + 1] * mul,
-                           acc[u][4 * cc + 2] * mul, acc[u][4 * cc + 3] * mul));
-    } else {
-#pragma unroll
-      for (int e = 0; e < D / 16; ++e)
-        store1(dst + s * stride + out_col<D>(tx, e), acc[u][e] * mul);
+    for (int c = 0; c < L::kPanels; ++c) {
+      T* const out = dst + s * stride + L::kPer * tx + L::kPanel * c;
+      const float* a = acc[u] + L::kPer * c;
+      if constexpr (L::kPer == 4) {
+        store4(out, make_float4(a[0] * mul, a[1] * mul, a[2] * mul, a[3] * mul));
+      } else {
+        store1(out, a[0] * mul);
+        store1(out + 1, a[1] * mul);
+      }
     }
   }
 }
@@ -244,12 +288,13 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float* __restrict__ delta_out, T* __restrict__ dq, int64_t seq,
                  int heads, int kv_heads, int causal, int64_t window, float scale) {
   using L = Smem<D>;
+  constexpr int kLd = L::kLd, kLdc = L::kLdc, kChunk = L::kChunk, kChunks = L::kChunks;
   extern __shared__ __align__(16) float smem[];
   float* const qs = smem;
   float* const dos = qs + L::kTileF;
-  float* const ks = dos + L::kTileF;
-  float* const vs = ks + L::kTileF;
-  float* const dst = vs + L::kTileF;  // dS^T: [key][query]
+  float* const ks = dos + L::kTileF;  // K (or o) chunk
+  float* const vs = ks + L::kChunkF;  // V chunk
+  float* const dst = vs + L::kChunkF;  // dS^T: [key][query]
   float* const del_s = dst + L::kScoreF;
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
@@ -267,13 +312,21 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_tile<D>(qs, qh, q0, seq, qstride);
   load_tile<D>(dos, doh, q0, seq, qstride);
-  load_tile<D>(ks, oh, q0, seq, qstride);  // o, for D_i only
-  __syncthreads();
-  {  // D_i = do_i . o_i: 4 threads a row, each a quarter of d, then 2 shuffles
+  {  // D_i = do_i . o_i: 4 threads a row, each a quarter of d, then 2
+     // shuffles; o is staged chunk by chunk in ks
     const int row = tid / 4, part = tid % 4;
     float acc = 0.f;
-    for (int d = part * (D / 4); d < (part + 1) * (D / 4); ++d)
-      acc = fmaf(dos[row * L::kLd + d], ks[row * L::kLd + d], acc);
+#pragma unroll
+    for (int cc = 0; cc < kChunks; ++cc) {
+      if (cc) __syncthreads();  // the previous chunk is read
+      load_chunk<D>(ks, oh, q0, seq, qstride, cc);
+      __syncthreads();
+      const int lo = part * (D / 4) > cc * kChunk ? part * (D / 4) : cc * kChunk;
+      const int hi = (part + 1) * (D / 4) < (cc + 1) * kChunk ? (part + 1) * (D / 4)
+                                                              : (cc + 1) * kChunk;
+      for (int d = lo; d < hi; ++d)
+        acc = fmaf(dos[row * kLd + d], ks[row * kLdc + d - cc * kChunk], acc);
+    }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     if (part == 0) del_s[row] = acc;
@@ -290,10 +343,14 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float s[4][4];
   for (int64_t t = t_lo; t < t_end; ++t) {
     const int64_t k0 = t * kTile;
-    __syncthreads();  // ks free (o, or the previous tile)
-    load_tile<D>(ks, kh, k0, seq, kstride);
-    __syncthreads();
-    rows_dot<D>(s, qs, ks, ty, tx);
+    zero(s);
+#pragma unroll
+    for (int cc = 0; cc < kChunks; ++cc) {
+      __syncthreads();  // ks free (o, or the previous chunk)
+      load_chunk<D>(ks, kh, k0, seq, kstride, cc);
+      __syncthreads();
+      rows_dot<kChunk, kLd, kLdc>(s, qs + cc * kChunk, ks, ty, tx);
+    }
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int64_t i = q0 + ty + 16 * r;
@@ -336,19 +393,21 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // pass 2: dQ += dS K over the same tiles
   float acc[4][D / 16];
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int e = 0; e < D / 16; ++e) acc[u][e] = 0.f;
+  zero(acc);
   float dp[4][4];
   for (int64_t t = t_lo; t < t_end; ++t) {
     const int64_t k0 = t * kTile;
-    __syncthreads();  // ks, vs, dst free
-    load_tile<D>(ks, kh, k0, seq, kstride);
-    load_tile<D>(vs, vh, k0, seq, kstride);
-    __syncthreads();
-    rows_dot<D>(s, qs, ks, ty, tx);
-    rows_dot<D>(dp, dos, vs, ty, tx);
+    zero(s);
+    zero(dp);
+#pragma unroll
+    for (int cc = 0; cc < kChunks; ++cc) {
+      __syncthreads();  // ks, vs, dst free
+      load_chunk<D>(ks, kh, k0, seq, kstride, cc);
+      load_chunk<D>(vs, vh, k0, seq, kstride, cc);
+      __syncthreads();
+      rows_dot<kChunk, kLd, kLdc>(s, qs + cc * kChunk, ks, ty, tx);
+      rows_dot<kChunk, kLd, kLdc>(dp, dos + cc * kChunk, vs, ty, tx);
+    }
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int64_t i = q0 + ty + 16 * r;
@@ -360,7 +419,19 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();
-    cols_accumulate<D>(acc, dst, ks, ty, tx);
+    if constexpr (kChunks == 1) {
+      cols_accumulate<D, kLdc>(acc, dst, ks, 0, L::kPanels, ty, tx);
+    } else {  // ks holds K's last chunk; then the others, one panel each
+#pragma unroll
+      for (int cc = kChunks - 1; cc >= 0; --cc) {
+        if (cc != kChunks - 1) {
+          __syncthreads();
+          load_chunk<D>(ks, kh, k0, seq, kstride, cc);
+          __syncthreads();
+        }
+        cols_accumulate<D, kLdc>(acc, dst, ks, cc, cc + 1, ty, tx);
+      }
+    }
   }
   store_rows<D>(dq + (b * seq * heads + h) * D, acc, q0, seq, qstride, scale, ty, tx);
 }
@@ -373,12 +444,13 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    T* __restrict__ dk, T* __restrict__ dv, int64_t seq, int heads,
                    int kv_heads, int causal, int64_t window, float scale) {
   using L = Smem<D>;
+  constexpr int kLd = L::kLd, kLdc = L::kLdc, kChunk = L::kChunk, kChunks = L::kChunks;
   extern __shared__ __align__(16) float smem[];
   float* const ks = smem;
   float* const vs = ks + L::kTileF;
-  float* const qs = vs + L::kTileF;
-  float* const dos = qs + L::kTileF;
-  float* const ps = dos + L::kTileF;  // P:  [query][key]
+  float* const qs = vs + L::kTileF;    // Q chunk
+  float* const dos = qs + L::kChunkF;  // dO chunk
+  float* const ps = dos + L::kChunkF;  // P:  [query][key]
   float* const dss = ps + L::kScoreF;  // dS: [query][key]
   float* const lse_s = dss + L::kScoreF;
   float* const del_s = lse_s + kTile;
@@ -401,10 +473,8 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t t_lo = i_lo / kTile, t_end = (i_end + kTile - 1) / kTile;
 
   float acc_k[4][D / 16], acc_v[4][D / 16];
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int e = 0; e < D / 16; ++e) { acc_k[u][e] = 0.f; acc_v[u][e] = 0.f; }
+  zero(acc_k);
+  zero(acc_v);
 
   float s[4][4], dp[4][4];
   for (int rep = 0; rep < n_rep; ++rep) {
@@ -414,17 +484,22 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t stats = (b * heads + h) * seq;
     for (int64_t t = t_lo; t < t_end; ++t) {
       const int64_t q0 = t * kTile;
-      __syncthreads();  // qs, dos, ps, dss free
-      load_tile<D>(qs, qh, q0, seq, qstride);
-      load_tile<D>(dos, doh, q0, seq, qstride);
-      if (tid < kTile) {
-        const int64_t i = q0 + tid;
-        lse_s[tid] = i < seq ? lse_in[stats + i] : 0.f;
-        del_s[tid] = i < seq ? delta_in[stats + i] : 0.f;
+      zero(s);
+      zero(dp);
+#pragma unroll
+      for (int cc = 0; cc < kChunks; ++cc) {
+        __syncthreads();  // qs, dos, ps, dss free
+        load_chunk<D>(qs, qh, q0, seq, qstride, cc);
+        load_chunk<D>(dos, doh, q0, seq, qstride, cc);
+        if (cc == 0 && tid < kTile) {
+          const int64_t i = q0 + tid;
+          lse_s[tid] = i < seq ? lse_in[stats + i] : 0.f;
+          del_s[tid] = i < seq ? delta_in[stats + i] : 0.f;
+        }
+        __syncthreads();
+        rows_dot<kChunk, kLdc, kLd>(s, qs, ks + cc * kChunk, ty, tx);
+        rows_dot<kChunk, kLdc, kLd>(dp, dos, vs + cc * kChunk, ty, tx);
       }
-      __syncthreads();
-      rows_dot<D>(s, qs, ks, ty, tx);
-      rows_dot<D>(dp, dos, vs, ty, tx);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int64_t i = q0 + ty + 16 * r;
@@ -438,8 +513,22 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
       __syncthreads();
-      cols_accumulate<D>(acc_v, ps, dos, ty, tx);
-      cols_accumulate<D>(acc_k, dss, qs, ty, tx);
+      if constexpr (kChunks == 1) {
+        cols_accumulate<D, kLdc>(acc_v, ps, dos, 0, L::kPanels, ty, tx);
+        cols_accumulate<D, kLdc>(acc_k, dss, qs, 0, L::kPanels, ty, tx);
+      } else {  // qs, dos hold the last chunk; then the others, a panel each
+#pragma unroll
+        for (int cc = kChunks - 1; cc >= 0; --cc) {
+          if (cc != kChunks - 1) {
+            __syncthreads();
+            load_chunk<D>(qs, qh, q0, seq, qstride, cc);
+            load_chunk<D>(dos, doh, q0, seq, qstride, cc);
+            __syncthreads();
+          }
+          cols_accumulate<D, kLdc>(acc_v, ps, dos, cc, cc + 1, ty, tx);
+          cols_accumulate<D, kLdc>(acc_k, dss, qs, cc, cc + 1, ty, tx);
+        }
+      }
     }
   }
   store_rows<D>(dk + (b * seq * kv_heads + hk) * D, acc_k, k0, seq, kstride, scale, ty, tx);
@@ -484,22 +573,33 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
   const T* vt = static_cast<const T*>(v);
   const T* ot = static_cast<const T*>(o);
   const T* dot = static_cast<const T*>(dout);
+  T* dqt = static_cast<T*>(dq);
+  T* dkt = static_cast<T*>(dk);
+  T* dvt = static_cast<T*>(dv);
   switch (head_dim) {
     case 32:
-      return launch<32, T>(qt, kt, vt, ot, dot, static_cast<T*>(dq), static_cast<T*>(dk),
-                           static_cast<T*>(dv), lse, delta, batch, seq, heads, kv_heads,
-                           causal, window, scale, stream);
+      return launch<32, T>(qt, kt, vt, ot, dot, dqt, dkt, dvt, lse, delta, batch, seq,
+                           heads, kv_heads, causal, window, scale, stream);
     case 64:
-      return launch<64, T>(qt, kt, vt, ot, dot, static_cast<T*>(dq), static_cast<T*>(dk),
-                           static_cast<T*>(dv), lse, delta, batch, seq, heads, kv_heads,
-                           causal, window, scale, stream);
+      return launch<64, T>(qt, kt, vt, ot, dot, dqt, dkt, dvt, lse, delta, batch, seq,
+                           heads, kv_heads, causal, window, scale, stream);
     case 128:
-      return launch<128, T>(qt, kt, vt, ot, dot, static_cast<T*>(dq), static_cast<T*>(dk),
-                            static_cast<T*>(dv), lse, delta, batch, seq, heads, kv_heads,
-                            causal, window, scale, stream);
+      return launch<128, T>(qt, kt, vt, ot, dot, dqt, dkt, dvt, lse, delta, batch, seq,
+                            heads, kv_heads, causal, window, scale, stream);
+    case 160:
+      return launch<160, T>(qt, kt, vt, ot, dot, dqt, dkt, dvt, lse, delta, batch, seq,
+                            heads, kv_heads, causal, window, scale, stream);
+    case 256:
+      return launch<256, T>(qt, kt, vt, ot, dot, dqt, dkt, dvt, lse, delta, batch, seq,
+                            heads, kv_heads, causal, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+template <int D>
+int64_t smem_bytes(int kernel) {
+  return (int64_t)(kernel == 0 ? Smem<D>::kDqBytes : Smem<D>::kDkdvBytes);
 }
 
 }  // namespace
@@ -531,6 +631,19 @@ int fa_backward(const void* q, const void* k, const void* v, const void* o,
                                         (int)heads, (int)kv_heads, head_dim, causal,
                                         window, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory a block of kernel 0 (dQ) or 1 (dK/dV) takes
+// at head dim head_dim; -1 for a head dim the kernels do not take.
+int64_t fa_bwd_smem_bytes(int64_t head_dim, int kernel) {
+  switch (head_dim) {
+    case 32: return smem_bytes<32>(kernel);
+    case 64: return smem_bytes<64>(kernel);
+    case 128: return smem_bytes<128>(kernel);
+    case 160: return smem_bytes<160>(kernel);
+    case 256: return smem_bytes<256>(kernel);
+    default: return -1;
+  }
 }
 
 }  // extern "C"

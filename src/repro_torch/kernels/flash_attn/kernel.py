@@ -31,9 +31,17 @@ BWD_LIBRARY = CudaLibrary("flash_attn_bwd", {
     "fab_error_string": (ctypes.c_char_p, [_i32]),
     "fa_backward": (_i32, [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i64, _i64,
                            _i64, _i64, _i64, _i32, _i32, _i64, _f32, _p]),
+    "fa_bwd_smem_bytes": (_i64, [_i64, _i32]),
 }, error_fn="fab_error_string", extra_flags=("-Xptxas", "-v"))
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def bwd_smem_bytes(d: int):
+    """(dQ kernel, dK/dV kernel) dynamic shared memory a block of the
+    backward at head dim ``d``, as the built library states it."""
+    lib = BWD_LIBRARY.load()
+    return lib.fa_bwd_smem_bytes(d, 0), lib.fa_bwd_smem_bytes(d, 1)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

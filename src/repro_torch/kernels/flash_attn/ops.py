@@ -23,8 +23,7 @@ from repro_torch.kernels.flash_attn import ref as _ref
 from repro_torch.utils.device import on_cuda
 from repro_torch.utils.fold import fold_batch, require_plain, unfold_batch
 
-HEAD_DIMS = (32, 64, 128, 160, 256)
-BWD_HEAD_DIMS = (32, 64, 128)  # the backward kernel's
+HEAD_DIMS = (32, 64, 128, 160, 256)  # the forward's and the backward's
 
 
 def _check_inputs(q, k, v, window: int) -> None:
@@ -70,9 +69,6 @@ def _backward(q, k, v, o, do, causal: bool, window: int):
     if not on_cuda(q, k, v, o, do):
         return _ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                             window=window)
-    if q.shape[-1] not in BWD_HEAD_DIMS:
-        raise ValueError(f"the backward kernel takes head dims "
-                         f"{BWD_HEAD_DIMS}; got {q.shape[-1]}")
     grads = _k.flash_attention_bwd(q, k, v, o, do, causal, window)
     flash_attention_bwd.launches += 1
     return grads
@@ -134,8 +130,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, S, H, D), k, v: (B, S, Hkv, D) with H % Hkv == 0 (query head h
     reads kv head h // (H // Hkv)); key j visible to query i where
     ``(not causal or i >= j) and (window == 0 or j > i - window)``. Returns
-    (B, S, H, D) in q's dtype. Any S; D in ``HEAD_DIMS`` (the backward
-    kernel: D in ``BWD_HEAD_DIMS``); f32 or bf16; contiguous.
+    (B, S, H, D) in q's dtype. Any S; D in ``HEAD_DIMS`` (the forward's and
+    the backward's); f32 or bf16; contiguous.
     """
     _check_inputs(q, k, v, window)
     return _FlashAttention.apply(q, k, v, bool(causal), int(window))

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -33,6 +34,7 @@ import torch
 from repro_torch.configs import get_arch, smoke_variant
 from repro_torch.configs.base import INPUT_SHAPES, FLConfig, ModelConfig
 from repro_torch.core.cohort import init_cohort_state, make_cohort_step
+from repro_torch.core.round_body import round_bytes
 from repro_torch.data.synthetic import make_lm_token_stream
 from repro_torch.launch.cli import (
     ObsStack,
@@ -43,6 +45,7 @@ from repro_torch.launch.cli import (
 from repro_torch.models.model import build_model
 from repro_torch.sim.scenarios import LatencyModel
 from repro_torch.utils.device import DeviceLike, resolve_device
+from repro_torch.utils.tree import tree_leaves
 
 logger = logging.getLogger("repro_torch.launch.train")
 
@@ -93,11 +96,27 @@ def make_batches(cfg, cohort, m, b, bp, seq, rng):
     return batch
 
 
+def check_fits(cfg: ModelConfig, params: Any, cohort: int,
+               capacity: int) -> None:
+    """Raise if a round of ``cohort`` slots cannot fit ``capacity`` bytes.
+    The config is never cut here: the caller picks a depth or a mesh."""
+    need = round_bytes(params, cohort)
+    if need > capacity:
+        n = sum(leaf.numel() for leaf in tree_leaves(params))
+        raise RuntimeError(
+            f"{cfg.name}: a cohort round of {cohort} slots over {n:,} params "
+            f"({cfg.num_layers} layers) holds {need / 2**30:.1f} GiB "
+            f"at its peak; the card has {capacity / 2**30:.1f} GiB. One card "
+            f"cannot train this config: cut num_layers or the cohort, or "
+            f"shard it over a mesh.")
+
+
 class TrainLoop:
     """The launcher's state: the model, the cohort state, the step, the
     arrival schedule and the host rng that makes the batches.
 
     ``params`` replaces the port's init (a test hands in JAX's weights).
+    On the card a config whose round cannot fit raises (``check_fits``).
     ``round(r)`` runs round ``r`` (0-based) and returns its metrics as
     tensors on the device; nothing in it waits for the device. The host
     seconds its batch took to make are left in ``batch_s``.
@@ -112,6 +131,10 @@ class TrainLoop:
         self.cfg, self.fl = cfg, fl
         self.cohort, self.batch, self.seq = cohort, batch, seq
         self.model = build_model(cfg, self.device)
+        if self.device.type == "cuda":
+            check_fits(cfg, self.model.init(None), cohort,
+                       torch.cuda.get_device_properties(
+                           self.device).total_memory)
         latency = LatencyModel.heterogeneous(cohort, seed=seed)
         self.schedule = arrival_schedule(cohort, fl.buffer_size, latency,
                                          rounds, seed=seed)
@@ -174,6 +197,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = build_parser().parse_args(argv)
+    # a full-width round fills most of the card in blocks of a few GiB: the
+    # allocator's expandable segments keep its cache from fragmenting (read
+    # at the first CUDA allocation, so before any)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     device = resolve_device(args.device)
     obs = ObsStack.from_args(args)
 

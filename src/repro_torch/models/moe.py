@@ -156,8 +156,11 @@ def moe_ffn(cfg, p: Params, x: torch.Tensor, capacity_factor: float = None):
     ys, auxes = [], []
     for xf in x.reshape(g, tg, d):
         probs, gate_vals, expert_ids = route(cfg, p, xf)
-        # load-balance aux (Switch): E * sum_e f_e * p_e
-        ce = F.one_hot(expert_ids[:, 0], e).float().mean(dim=0)
+        # load-balance aux (Switch): E * sum_e f_e * p_e; the one-hot is a
+        # comparison (F.one_hot reads its input's maximum on the host,
+        # which torch.func.vmap refuses)
+        ce = (expert_ids[:, :1] == torch.arange(e, device=xf.device)
+              ).float().mean(dim=0)
         auxes.append(e * torch.sum(probs.mean(dim=0) * ce)
                      * cfg.router_aux_coef)
         ys.append(dispatch_combine(cfg, p, xf, gate_vals, expert_ids, cap))

@@ -105,7 +105,13 @@ class _Remat(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         cotangent = grads[0] if ctx.single else tuple(grads)
-        return (None, *ctx.plan.backward(ctx.saved_tensors, cotangent))
+        # torch.func.grad differentiates with create_graph=True, so a
+        # backward that records its ops keeps every layer's recomputed
+        # activations and cotangents alive until the whole gradient is
+        # done. Nothing here is differentiated twice: record nothing (the
+        # vjp inside keeps its own level, which ignores this no_grad)
+        with torch.no_grad():
+            return (None, *ctx.plan.backward(ctx.saved_tensors, cotangent))
 
 
 def remat(fn: Callable) -> Callable:

@@ -1080,6 +1080,11 @@ def _grad_close(got, want, rtol, atol_rel):
     (2, 129, 25, 5, 64, True, 64),
     (3, 70, 4, 4, 32, True, 32),      # the smoke configs' head dim
     (1, 1, 2, 1, 64, True, 0),
+    (2, 150, 4, 1, 160, True, 0),     # stablelm-12b's head dim
+    (1, 200, 4, 2, 160, True, 64),
+    (2, 150, 2, 2, 256, True, 0),     # gemma-7b's: staged D-chunks
+    (1, 131, 4, 2, 256, False, 0),
+    (1, 300, 2, 1, 256, True, 100),
 ])
 def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, b, s, h, hkv,
                                                   d, causal, window):
@@ -1107,9 +1112,30 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, b, s, h, hkv,
 
 @pytest.mark.cuda
 def test_flash_attention_bwd_kernel_names_its_head_dims(cuda):
-    q = k = v = o = torch.zeros(1, 8, 2, 160, device=cuda)
-    with pytest.raises(ValueError, match="head dims"):
+    """Every D of HEAD_DIMS launches; another D is refused by name."""
+    for d in fa_ops.HEAD_DIMS:
+        q = k = v = o = torch.zeros(1, 8, 2, d, device=cuda)
+        dq, dk, dv = fa_ops.flash_attention_bwd(q, k, v, o, o)
+        assert dq.shape == q.shape
+    q = k = v = o = torch.zeros(1, 8, 2, 96, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
         fa_ops.flash_attention_bwd(q, k, v, o, o)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_kernel_shared_memory_fits(cuda):
+    """The library states each instance's shared memory a block: D 160
+    (whole tiles) and 256 (staged chunks) take 185,600 B (dQ) and 203,264 B
+    (dK/dV), and every D fits the card's opt-in limit."""
+    from repro_torch.kernels.flash_attn import kernel as fa_kernel
+
+    optin = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    for d in fa_ops.HEAD_DIMS:
+        dq, dkdv = fa_kernel.bwd_smem_bytes(d)
+        assert 0 < dq <= optin and 0 < dkdv <= optin
+    for d in (160, 256):
+        assert fa_kernel.bwd_smem_bytes(d) == (185_600, 203_264)
+    assert fa_kernel.bwd_smem_bytes(96) == (-1, -1)
 
 
 @pytest.mark.cuda

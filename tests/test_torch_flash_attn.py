@@ -238,15 +238,17 @@ def test_backward_plain_matches_jax_grad(b, s, h, hkv, d, causal, window,
 
 
 def test_backward_kernel_head_dims_are_named():
-    """The backward kernel takes D in BWD_HEAD_DIMS; its plain version any
-    D. A card is needed to reach the kernel's check, so the CPU path shows
-    the plain version takes D = 160 and the set is what the kernel
-    builds."""
-    q, k, v, do = (torch.from_numpy(a) for a in _bwd_case(1, 16, 2, 1, 160))
-    o = tops.flash_attention(q, k, v)
-    dq, dk, dv = tops.flash_attention_bwd(q, k, v, o, do)
-    assert dq.shape == q.shape and dk.shape == k.shape
-    assert tops.BWD_HEAD_DIMS == (32, 64, 128)
+    """The backward kernel takes every D of HEAD_DIMS, as the forward does;
+    its plain version any D. A card is needed to reach the kernel, so the
+    CPU path shows the plain version takes D = 160 and 256 and the source
+    dispatches each D of the set."""
+    for d in (160, 256):
+        q, k, v, do = (torch.from_numpy(a) for a in _bwd_case(1, 16, 2, 1, d))
+        o = tops.flash_attention(q, k, v)
+        dq, dk, dv = tops.flash_attention_bwd(q, k, v, o, do)
+        assert dq.shape == q.shape and dk.shape == k.shape
+    assert tops.HEAD_DIMS == (32, 64, 128, 160, 256)
+    assert not hasattr(tops, "BWD_HEAD_DIMS")
     src = (tops._k.BWD_LIBRARY.source).read_text()
-    for d in tops.BWD_HEAD_DIMS:
+    for d in tops.HEAD_DIMS:
         assert f"case {d}:" in src

@@ -99,7 +99,11 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.optim, repro_torch.optim.schedules, "
             "repro_torch.launch.program, repro_torch.launch.train, "
             "repro_torch.kernels.flash_attn.kernel, "
-            "repro_torch.kernels.ssm_scan.kernel; "
+            "repro_torch.kernels.ssm_scan.kernel, "
+            "repro_torch.kernels.flash_attn.ref, repro_torch.core.client, "
+            "repro_torch.core.round_body, repro_torch.core.server_pass, "
+            "repro_torch.models.blocks, repro_torch.utils.tree, "
+            "repro_torch.launch.round_memory; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code],
@@ -250,6 +254,40 @@ def test_lm_entry_points_default_to_cuda_and_raise(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         lm_params_from_jax({"w": [1.0]})
     assert Model(cfg, device="cpu").device == torch.device("cpu")
+
+
+def test_moe_layer_reads_nothing_on_the_host_under_vmap():
+    """The MoE layer under ``vmap(grad)`` over 2 slots at a capacity that
+    drops tokens: a host read of a batched tensor (``F.one_hot`` reads its
+    input's maximum, ``.item()``, ``bincount``) would raise here. Its
+    source calls none of them."""
+    from torch.func import grad, vmap
+
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Init
+    from repro_torch.utils.tree import tree_map
+
+    cfg = smoke_variant(get_arch("deepseek-moe-16b").model).replace(
+        moe_capacity_factor=1.25)
+    p = moe.init_moe(Init(torch.Generator().manual_seed(0),
+                          torch.device("cpu")), cfg)
+    slots = tree_map(lambda v: v[None].expand((2,) + v.shape).clone(), p)
+    x = torch.randn(2, 2, 16, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+
+    def loss(params, xs):
+        y, aux = moe.moe_ffn(cfg, params, xs)
+        return y.square().sum() + aux
+
+    g = vmap(grad(loss))(slots, x)
+    assert g["router"].shape == slots["router"].shape
+    tree = ast.parse((ROOT / "src" / "repro_torch" / "models" /
+                      "moe.py").read_text())
+    called = {node.func.attr for node in ast.walk(tree)
+              if isinstance(node, ast.Call)
+              and isinstance(node.func, ast.Attribute)}
+    assert not called & {"one_hot", "item", "tolist", "bincount", "nonzero",
+                         "index_add_"}
 
 
 KERNEL_MODULES = sorted(p.parent.name for p in (
