@@ -141,7 +141,8 @@ Phases, in order; any failure raises and exits non-zero:
    N=16) and a ragged S (1001). Each timed beside its bound and its plain
    version; K5 also beside ``scaled_dot_product_attention`` (enable_gqa, a
    boolean band mask), the port never calls it. K5's bf16 instance runs on
-   the tensor cores (wgmma fed by TMA), its f32 instance on the CUDA cores.
+   the tensor cores (wgmma fed by TMA), its f32 instance on the CUDA cores;
+   the rows' lse each writes for the backward against the plain lse.
    At the prefill's shapes K5, SDPA and K6 are also timed as a burst of
    back-to-back calls (device time: these kernels outlast their dispatch);
    K6 also at the ragged S.
@@ -178,12 +179,16 @@ Phases, in order; any failure raises and exits non-zero:
    model is freed before the next, and the card's allocated memory must
    return to where it was.
 
-10. Slice F3, LM training: (a) K5's backward kernel against its plain
-   backward formula at the training run's shape (B = 4, S = 2048), at
+10. Slice F3, LM training: (a) K5's backward kernel (bf16: the wgmma
+   instance; f32: the CUDA-core one), on the forward kernel's o and lse,
+   against its plain backward formula on the same o and lse at the
+   training run's shape (B = 4, S = 2048), at
    Hymba's prefill shapes (B=2, S=4096, 25/5 heads, D=64; window 1024 and
    0; bf16 and f32), a ragged S (3001) and deepseek-moe-16b's D = 128,
    two launches bit-identical, timed per call and as a burst beside its
    bound (10 D FLOP a visible pair) and SDPA's backward (band mask, GQA);
+   each record names its instance, its share of the bound, its ratio to
+   SDPA's backward and ptxas's registers and spills of its kernels;
    (b) K6's backward at the training shape (an A per slot), Hymba's widths
    with a shared and a per-row A and a ragged S (1001), the per-row-A
    forward against its plain version, bit-identical twice, beside its
@@ -276,6 +281,10 @@ DELTA_ROUNDS = 34  # past one ring lap (R = 33): the base refresh runs
 # most one bf16 ulp of the output (2^-8 relative, 2^-7 just above a power of
 # two)
 ATTN_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (8e-3, 1e-5)}
+# K5's lse (the rows' log-sum-exps it writes for the backward) vs the plain
+# lse: f32 sums in other orders and the tensor cores' exp2 (rtol); an lse
+# 1e-4 off moves the backward's p by 1e-4 relative, far inside its tolerance
+LSE_RTOL, LSE_ATOL = 1e-5, 1e-4
 # K6 vs its plain version: the same f32 recurrence, exp and the 16-term sums
 # in other orders; atol relative to the largest |y|
 SCAN_RTOL, SCAN_ATOL_REL = 1e-4, 1e-5
@@ -487,6 +496,24 @@ def ptxas_lines(report, part: str):
         if keep:
             out.append(line)
     return out
+
+
+def ptxas_usage(report, part: str):
+    """{mangled name: (registers, spill store bytes, spill load bytes)} of
+    the kernels of a ptxas report whose mangled names contain ``part``."""
+    out, name = {}, None
+    for line in ptxas_lines(report, part):
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = [None, None, None]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def fmt_ms(x) -> str:
@@ -737,16 +764,21 @@ def flash_kernel_phase(torch, fa_ops, fa_ref, rate: float):
         g = torch.Generator(device="cuda").manual_seed(s + window)
         q, k, v = (torch.randn(b, s, n, d, device="cuda", generator=g)
                    .to(dtype) for n in (h, hkv, hkv))
-        out = fa_ops.flash_attention(q, k, v, window=window)
+        out, lse = fa_ops.flash_attention_lse(q, k, v, window=window)
         check(torch.equal(out, fa_ops.flash_attention(q, k, v, window=window)),
               f"K5 not bit-identical at S={s} window={window} {dtype_name}")
-        want = fa_ref.flash_attention_ref(q, k, v, window=window)
+        want, want_lse = fa_ref.flash_attention_ref(q, k, v, window=window,
+                                                    with_lse=True)
         rtol, atol = ATTN_TOL[dtype_name]
         err = float((out.float() - want.float()).abs().max())
         check(torch.allclose(out.float(), want.float(), rtol=rtol, atol=atol),
               f"K5 vs plain at S={s} window={window} {dtype_name}: max abs "
               f"err {err}")
-        del want
+        lse_err = float((lse - want_lse).abs().max())
+        check(torch.allclose(lse, want_lse, rtol=LSE_RTOL, atol=LSE_ATOL),
+              f"K5's lse vs plain at S={s} window={window} {dtype_name}: max "
+              f"abs err {lse_err}")
+        del want, want_lse, lse
         # yardstick: one PyTorch call for the same function, (B, H, S, D)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         mask = fa_ref.band_mask(s, s, True, window, q.device)
@@ -783,7 +815,7 @@ def flash_kernel_phase(torch, fa_ops, fa_ref, rate: float):
               f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} "
               f"ms (vs kernel {lib_err:.3g})  bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}, {flops / 1e9:.2f} GFLOP, {nbytes:,d} B)  "
-              f"max_abs_err {err:.3g}")
+              f"max_abs_err {err:.3g}  lse max_abs_err {lse_err:.3g}")
         records[(s, window, dtype_name)] = r
         del q, k, v, out, qt, kt, vt, mask
         torch.cuda.empty_cache()
@@ -2751,9 +2783,33 @@ def tree_err(torch, got, want) -> float:
     return err / max(float(b.float().abs().max()) for _, b in pairs)
 
 
+def bwd_instance(fa_kernel, d: int, dtype_name: str):
+    """K5's backward instance at (D, dtype): its name and ptxas's registers
+    and spills (store / load bytes) for each of its kernels."""
+    if dtype_name == "bfloat16":
+        name, parts = "wgmma", (f"fa_bwd_dq_sm90ILi{d}E",
+                                f"fa_bwd_dkdv_sm90ILi{d}E")
+    else:
+        name, parts = "CUDA cores", (f"fa_bwd_dq_kernelILi{d}E",
+                                     f"fa_bwd_dkdv_kernelILi{d}E")
+    usage = {}
+    for part in parts:
+        for kname, (regs, st, ld) in ptxas_usage(
+                fa_kernel.BWD_LIBRARY.ptxas_info, part).items():
+            mode = re.search(r"ILi\d+ELi(\d)E", kname)
+            label = part.split("ILi")[0] + (f"<{d}, {mode.group(1)}>" if mode
+                                             else f"<{d}>")
+            usage[label] = dict(registers=regs, spill_stores=st,
+                                spill_loads=ld)
+    return name, usage
+
+
 def attn_bwd_phase(torch, fa_ops, fa_ref, rate: float,
                    cases=ATTN_BWD_CASES):
-    """(a) K5's backward against its plain backward; per-case records."""
+    """(a) K5's backward against its plain backward, both on the forward
+    kernel's o and lse; per-case records."""
+    from repro_torch.kernels.flash_attn import kernel as fa_kernel
+
     F = torch.nn.functional
     records = {}
     for b, s, h, hkv, d, window, dtype_name in cases:
@@ -2761,16 +2817,18 @@ def attn_bwd_phase(torch, fa_ops, fa_ref, rate: float,
         g = torch.Generator(device="cuda").manual_seed(s + h + d + window)
         q, k, v, do = (torch.randn(b, s, n, d, device="cuda", generator=g)
                        .to(dtype) for n in (h, hkv, hkv, h))
-        o = fa_ops.flash_attention(q, k, v, window=window)
+        o, lse = fa_ops.flash_attention_lse(q, k, v, window=window)
 
         def kernel():
-            return fa_ops.flash_attention_bwd(q, k, v, o, do, window=window)
+            return fa_ops.flash_attention_bwd(q, k, v, o, do, lse,
+                                              window=window)
 
         got = kernel()
         again = kernel()
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
               f"K5 backward not bit-identical at {(b, s, h, d, window)}")
-        want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, window=window)
+        want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, window=window,
+                                              lse=lse)
         rtol, atol = ATTN_BWD_TOL[dtype_name]
         err = 0.0
         for name, x, y in zip(("dq", "dk", "dv"), got, want):
@@ -2804,22 +2862,28 @@ def attn_bwd_phase(torch, fa_ops, fa_ref, rate: float,
             ms=time_ms(torch, kernel, reps=10, warmup=2),
             burst_ms=time_burst(torch, kernel, n=20, warmup=2),
             plain_ms=time_ms(torch, lambda: fa_ref.flash_attention_bwd_ref(
-                q, k, v, o, do, window=window), reps=2, warmup=1),
+                q, k, v, o, do, window=window, lse=lse), reps=2, warmup=1),
             library_ms=time_ms(torch, library, reps=10, warmup=2),
             library_burst_ms=None, device_ms=None, library_device_ms=None,
             max_abs_err=err, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             shape=dict(b=b, s=s, h=h, hkv=hkv, d=d, window=window,
                        dtype=dtype_name))
+        r["instance"], r["ptxas"] = bwd_instance(fa_kernel, d, dtype_name)
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["vs_sdpa"] = r["ms"] / r["library_ms"]
         print(f"    K5 backward B={b} S={s:5d} H={h} Hkv={hkv} D={d} "
-              f"window={window:4d} {dtype_name:8s}: kernel {r['ms']:.4f} ms "
-              f"(burst {r['burst_ms']:.4f})  plain {r['plain_ms']:.4f} ms  "
-              f"SDPA backward {r['library_ms']:.4f} ms  bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
-              f"{flops / 1e9:.2f} GFLOP, {nbytes:,d} B)  max_abs_err "
-              f"{err:.3g}")
+              f"window={window:4d} {dtype_name:8s} ({r['instance']}): kernel "
+              f"{r['ms']:.4f} ms (burst {r['burst_ms']:.4f})  plain "
+              f"{r['plain_ms']:.4f} ms  SDPA backward {r['library_ms']:.4f} ms "
+              f"(kernel / SDPA {r['vs_sdpa']:.3f})  bound {r['bound_ms']:.4f} "
+              f"ms ({r['bound_by']}, {flops / 1e9:.2f} GFLOP, {nbytes:,d} B; "
+              f"{100 * r['bound_share']:.1f}% of it)  max_abs_err {err:.3g}; "
+              + "; ".join(f"{k_} {u['registers']} registers, "
+                          f"{u['spill_stores']} / {u['spill_loads']} B spilled"
+                          for k_, u in r["ptxas"].items()))
         records[(b, s, h, hkv, d, window, dtype_name)] = r
-        del q, k, v, o, do, qt, kt, vt, dot, out, mask
+        del q, k, v, o, lse, do, qt, kt, vt, dot, out, mask
         torch.cuda.empty_cache()
     return records
 
@@ -3693,11 +3757,12 @@ def main() -> int:
             print(f"  {line}")
     optin = getattr(torch.cuda.get_device_properties(0),
                     "shared_memory_per_block_optin", None)
-    print("  K5 backward's dynamic shared memory a block (dQ, dK/dV), of "
-          f"{optin if optin is None else format(optin, ',d')} B opt-in: "
-          + ", ".join(
-              f"D={d} {a:,d} / {b:,d} B" for d in fa_ops.HEAD_DIMS
-              for a, b in [fa_kernel.bwd_smem_bytes(d)]))
+    for dtype in (torch.float32, torch.bfloat16):
+        print(f"  K5 backward's dynamic shared memory a block (dQ, dK/dV), "
+              f"{dtype}, of {optin if optin is None else format(optin, ',d')} "
+              "B opt-in: " + ", ".join(
+                  f"D={d} {a:,d} / {b:,d} B" for d in fa_ops.HEAD_DIMS
+                  for a, b in [fa_kernel.bwd_smem_bytes(d, dtype)]))
     # the cooperative grids: min(work, co-resident blocks)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for what, blocks in (

@@ -16,7 +16,13 @@
 // (!causal || i >= j) && (window <= 0 || j > i - window). Scores, running
 // max m, running sum l and the accumulator are f32; masked scores count as
 // -inf (the Pallas body's -1e30) and their p is 0; l is floored at 1e-20; o
-// is written in q's dtype.
+// is written in q's dtype. Where the caller passes an lse buffer (the
+// training path always does), each row's log-sum-exp of its scaled scores,
+//
+//   lse[b, h, i] = m_i + log(max(l_i, 1e-20))      (f32, (B, H, S)),
+//
+// is written beside o (B * H * S * 4 bytes, 2 / D of o's bytes at bf16),
+// so the backward (csrc/flash_attn_bwd.cu) need not recompute it.
 //
 // Bound on an H100 SXM at the serving path's shape (Hymba-1.5B prefill, B = 2,
 // S = 4096, H = 25, Hkv = 5, D = 64, window 1024, bf16): operations. The
@@ -86,10 +92,11 @@
 // S are never visible and never written).
 //
 // Interface: plain C, loaded with ctypes. fa_forward launches on the stream
-// it is given, allocates nothing and returns cudaGetLastError() (or the
-// error of the tensor-map encode or of the shared-memory attribute). The
-// tensor maps come from cuTensorMapEncodeTiled, reached through
-// cudaGetDriverEntryPoint(ByVersion), so the library needs no -lcuda.
+// it is given, allocates nothing (lse may be null: then it is not written)
+// and returns cudaGetLastError() (or the error of the tensor-map encode or
+// of the shared-memory attribute). The tensor maps come from
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint(ByVersion)
+// (csrc/hopper.cuh), so the library needs no -lcuda.
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -I csrc -o libflash_attn.so flash_attn.cu
 
@@ -97,8 +104,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -120,9 +125,9 @@ struct KvTile {
 template <int D>
 __global__ void __launch_bounds__(kBlockQ)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int64_t seq,
-                 int heads, int kv_heads, int causal, int64_t window,
-                 float scale) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int64_t seq, int heads, int kv_heads,
+                 int causal, int64_t window, float scale) {
   constexpr int kRows = KvTile<D>::kRows;
   __shared__ __align__(16) float ks[kRows][D];
   __shared__ __align__(16) float vs[kRows][D];
@@ -217,6 +222,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* orow = o + ((b * seq + qpos) * heads + h) * D;
 #pragma unroll
     for (int d = 0; d < D; ++d) orow[d] = acc[d] / denom;
+    if (lse != nullptr) lse[(b * heads + h) * seq + qpos] = m + logf(denom);
   }
 }
 
@@ -224,7 +230,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int kRowsWg = 64;                      // query rows per warpgroup
 constexpr int kKeys = 64;                        // keys per kv tile (Bc)
-constexpr float kLog2e = 1.4426950408889634f;
+using hopper::ex2;
+using hopper::kLn2;
+using hopper::kLog2e;
+using hopper::neg_inf;
+using hopper::pack_bf16;
 
 // D = 256 takes one consumer warpgroup and 3 stages: its accumulator is 128
 // f32 registers a thread, which two consumers (288 threads, at most 224
@@ -232,10 +242,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 // 2 stages only.
 template <int D>
 struct Sm90 {
-  static constexpr int kPanelCols = D % 64 == 0 ? 64 : 32;  // columns per swizzle row
-  static constexpr int kPanels = D / kPanelCols;
-  static constexpr int kRowBytes = kPanelCols * 2;        // 128 or 64
-  static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 1 : 2;  // descriptor
+  static constexpr int kPanelCols = hopper::Panels<D>::kCols;  // columns per swizzle row
+  static constexpr int kPanels = hopper::Panels<D>::kCount;
+  static constexpr int kRowBytes = hopper::Panels<D>::kRowBytes;  // 128 or 64
   static constexpr int kConsumers = D > 160 ? 1 : 2;      // consumer warpgroups
   static constexpr int kStages = D > 160 ? 3 : 4;         // K/V ring depth
   static constexpr int kRowsCta = kRowsWg * kConsumers;   // query rows per CTA
@@ -244,23 +253,8 @@ struct Sm90 {
   static constexpr int kTileBytes = kKeys * D * 2;        // one K or V tile
   static constexpr int kSmem = 1024 /* alignment slack */ + kConsumers * kQBytes +
                                2 * kStages * kTileBytes + (2 * kStages + 1) * 8;
-  static_assert(D % kPanelCols == 0, "D must be whole panels");
   static_assert(kSmem <= 232448, "above the 227 KB a CTA may have");
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// -inf: a masked score, whose exp2 is p = 0
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // the upper halves of two f32 words (each truncated to bf16), packed
 __device__ __forceinline__ uint32_t pack_upper(float lo, float hi) {
@@ -271,60 +265,17 @@ __device__ __forceinline__ float upper_f32(float x) {
   return __uint_as_float(__float_as_uint(x) & 0xffff0000u);
 }
 
-// S = Q K^T for one warpgroup: 64 query rows x 64 keys, over D in steps of 16.
-template <int D>
-__device__ __forceinline__ void mma_scores(float (&sc)[kKeys / 2], uint32_t q_addr,
-                                             uint32_t k_addr) {
-  using C = Sm90<D>;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t col = (kk * 16 % C::kPanelCols) * 2;
-    const uint32_t panel = kk * 16 / C::kPanelCols;
-    hopper::wgmma_ss(
-        sc,
-        hopper::gmma_desc(q_addr + panel * kRowsWg * C::kRowBytes + col, 16,
-                          8 * C::kRowBytes, C::kSwizzle),
-        hopper::gmma_desc(k_addr + panel * kKeys * C::kRowBytes + col, 16,
-                          8 * C::kRowBytes, C::kSwizzle),
-        kk > 0);
-  }
-}
-
 // O += P V for one warpgroup, P = P_hi + P_lo, over the tile's keys in steps
-// of 16; V is read MN-major. Up to D = 128 one wgmma spans D (its leading
-// byte offset steps between panels); above, one wgmma per panel, each on
-// its slice of the accumulator: the fragment of an n-wide product is the
-// fragments of its panels side by side, so the slices need no reordering.
+// of 16 (hi then lo at each step); V is read MN-major.
 template <int D>
 __device__ __forceinline__ void mma_pv(float (&acc)[D / 2],
                                          const uint32_t (&p_hi)[kKeys / 4],
                                          const uint32_t (&p_lo)[kKeys / 4],
                                          uint32_t v_addr) {
-  using C = Sm90<D>;
 #pragma unroll
   for (int kk = 0; kk < kKeys / 16; ++kk) {
-    if constexpr (D <= 128) {
-      const uint64_t dv = hopper::gmma_desc(v_addr + kk * 16 * C::kRowBytes,
-                                            kKeys * C::kRowBytes, 8 * C::kRowBytes,
-                                            C::kSwizzle);
-      hopper::wgmma_rs(acc, p_hi[4 * kk], p_hi[4 * kk + 1], p_hi[4 * kk + 2],
-                       p_hi[4 * kk + 3], dv, 1);
-      hopper::wgmma_rs(acc, p_lo[4 * kk], p_lo[4 * kk + 1], p_lo[4 * kk + 2],
-                       p_lo[4 * kk + 3], dv, 1);
-    } else {
-#pragma unroll
-      for (int p = 0; p < C::kPanels; ++p) {
-        float(&part)[C::kPanelCols / 2] =
-            *reinterpret_cast<float(*)[C::kPanelCols / 2]>(&acc[p * C::kPanelCols / 2]);
-        const uint64_t dv = hopper::gmma_desc(
-            v_addr + (p * kKeys + kk * 16) * C::kRowBytes, kKeys * C::kRowBytes,
-            8 * C::kRowBytes, C::kSwizzle);
-        hopper::wgmma_rs(part, p_hi[4 * kk], p_hi[4 * kk + 1], p_hi[4 * kk + 2],
-                         p_hi[4 * kk + 3], dv, 1);
-        hopper::wgmma_rs(part, p_lo[4 * kk], p_lo[4 * kk + 1], p_lo[4 * kk + 2],
-                         p_lo[4 * kk + 3], dv, 1);
-      }
-    }
+    hopper::mma_rs_k16<D>(acc, &p_hi[4 * kk], v_addr, kk);
+    hopper::mma_rs_k16<D>(acc, &p_lo[4 * kk], v_addr, kk);
   }
 }
 
@@ -404,8 +355,8 @@ __global__ void __launch_bounds__(Sm90<D>::kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v,
-               __nv_bfloat16* __restrict__ o, int seq, int heads, int n_rep,
-               int causal, int window, float scale_log2) {
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int seq,
+               int heads, int n_rep, int causal, int window, float scale_log2) {
   using C = Sm90<D>;
   using namespace hopper;
   constexpr int kConsumers = C::kConsumers;
@@ -513,7 +464,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
     // first tile: scores and softmax
     wait_tile(wt_lo);
     wgmma_fence();
-    mma_scores<D>(sc, q_addr, smem_addr(sk + stage(wt_lo) * C::kTileBytes));
+    mma_ss<D>(sc, q_addr, smem_addr(sk + stage(wt_lo) * C::kTileBytes));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -525,7 +476,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
     for (int t = wt_lo + 1; t <= wt_hi; ++t) {
       wait_tile(t);
       wgmma_fence();
-      mma_scores<D>(sc, q_addr, smem_addr(sk + stage(t) * C::kTileBytes));
+      mma_ss<D>(sc, q_addr, smem_addr(sk + stage(t) * C::kTileBytes));
       wgmma_commit();
       mma_pv<D>(acc, p_hi, p_lo, smem_addr(sv + stage(t - 1) * C::kTileBytes));
       wgmma_commit();
@@ -558,12 +509,15 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   }
   if (wt_lo > wt_hi) return;  // no rows below S
 
-  // o = acc / max(l, 1e-20), rows below S only
+  // o = acc / max(l, 1e-20) and lse = m ln 2 + ln(max(l, 1e-20)), rows
+  // below S only
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     l[r] = fmaxf(l[r], 1e-20f);
+    if (lse != nullptr && (lane & 3) == 0 && row_a + 8 * r < seq)
+      lse[((int64_t)b * heads + h) * seq + row_a + 8 * r] = m[r] * kLn2 + logf(l[r]);
   }
   const int64_t stride = (int64_t)heads * D;
   __nv_bfloat16* o_a = o + ((int64_t)b * seq + row_a) * stride + (int64_t)h * D + col;
@@ -577,70 +531,27 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
                        int64_t batch, int64_t seq, int64_t heads, int64_t kv_heads,
                        int causal, int64_t window, float scale, cudaStream_t stream) {
   const dim3 grid((unsigned)((seq + kBlockQ - 1) / kBlockQ), (unsigned)heads,
                   (unsigned)batch);
   flash_fwd_kernel<D><<<grid, kBlockQ, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), seq, (int)heads,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, seq, (int)heads,
       (int)kv_heads, causal, window, scale);
   return cudaGetLastError();
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                    cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// Tensor map over a contiguous (batch, seq, cols) bf16 array; boxes of
-// (panel_cols, rows, 1) with the swizzle the wgmma descriptors expect.
-bool tensor_map(CUtensorMap* map, const void* ptr, int64_t batch, int64_t seq,
-                int64_t cols, int panel_cols, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)seq, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)(cols * seq) * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)panel_cols, (cuuint32_t)rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                panel_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                      : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int64_t batch, int64_t seq, int64_t heads, int64_t kv_heads,
+                        float* lse, int64_t batch, int64_t seq, int64_t heads, int64_t kv_heads,
                         int causal, int64_t window, float scale, cudaStream_t stream) {
   using C = Sm90<D>;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!tensor_map(&tm_q, q, batch, seq, heads * D, C::kPanelCols, kRowsWg) ||
-      !tensor_map(&tm_k, k, batch, seq, kv_heads * D, C::kPanelCols, kKeys) ||
-      !tensor_map(&tm_v, v, batch, seq, kv_heads * D, C::kPanelCols, kKeys))
+  if (!hopper::tensor_map(&tm_q, q, batch, seq, heads * D, C::kPanelCols, kRowsWg) ||
+      !hopper::tensor_map(&tm_k, k, batch, seq, kv_heads * D, C::kPanelCols, kKeys) ||
+      !hopper::tensor_map(&tm_v, v, batch, seq, kv_heads * D, C::kPanelCols, kKeys))
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
@@ -648,43 +559,23 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((unsigned)heads, (unsigned)batch,
                   (unsigned)((seq + C::kRowsCta - 1) / C::kRowsCta));
   flash_fwd_sm90<D><<<grid, C::kThreads, C::kSmem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), (int)seq, (int)heads,
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, (int)seq, (int)heads,
       (int)(heads / kv_heads), causal, (int)window, scale * kLog2e);
   return cudaGetLastError();
 }
 
-// Calls f(std::integral_constant<int, D>) for D = dim in {32, 64, 128, 160,
-// 256}.
-template <typename F>
-cudaError_t by_dim(int64_t dim, F f) {
-  switch (dim) {
-    case 32:
-      return f(std::integral_constant<int, 32>{});
-    case 64:
-      return f(std::integral_constant<int, 64>{});
-    case 128:
-      return f(std::integral_constant<int, 128>{});
-    case 160:
-      return f(std::integral_constant<int, 160>{});
-    case 256:
-      return f(std::integral_constant<int, 256>{});
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-cudaError_t forward(const void* q, const void* k, const void* v, void* o,
+cudaError_t forward(const void* q, const void* k, const void* v, void* o, float* lse,
                     int64_t batch, int64_t seq, int64_t heads, int64_t kv_heads,
                     int64_t dim, int dtype, int causal, int64_t window, float scale,
                     cudaStream_t s) {
   if (dtype == 0)
-    return by_dim(dim, [&](auto d) {
-      return launch_f32<decltype(d)::value>(q, k, v, o, batch, seq, heads, kv_heads,
+    return hopper::by_dim(dim, [&](auto d) {
+      return launch_f32<decltype(d)::value>(q, k, v, o, lse, batch, seq, heads, kv_heads,
                                             causal, window, scale, s);
     });
   if (dtype == 1)
-    return by_dim(dim, [&](auto d) {
-      return launch_bf16<decltype(d)::value>(q, k, v, o, batch, seq, heads, kv_heads,
+    return hopper::by_dim(dim, [&](auto d) {
+      return launch_bf16<decltype(d)::value>(q, k, v, o, lse, batch, seq, heads, kv_heads,
                                              causal, window, scale, s);
     });
   return cudaErrorInvalidValue;
@@ -702,17 +593,17 @@ const char* fa_error_string(int code) {
 // shape or type the kernel does not take (the Python wrapper checks first).
 // The bf16 instance needs 16-byte aligned q, k, v (TMA), S below 2^22 (the
 // grid's query-tile axis, 64 rows a tile at D = 256) and a window below 2^31.
-int fa_forward(const void* q, const void* k, const void* v, void* o, int64_t batch,
-               int64_t seq, int64_t heads, int64_t kv_heads, int64_t dim, int dtype,
-               int causal, int64_t window, float scale, void* stream) {
+int fa_forward(const void* q, const void* k, const void* v, void* o, void* lse,
+               int64_t batch, int64_t seq, int64_t heads, int64_t kv_heads, int64_t dim,
+               int dtype, int causal, int64_t window, float scale, void* stream) {
   if (batch < 1 || seq < 1 || kv_heads < 1 || heads % kv_heads || heads > 65535 ||
       batch > 65535)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 && ((seq + kRowsWg - 1) / kRowsWg > 65535 || window > 0x7fffffff ||
                      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16))
     return (int)cudaErrorInvalidValue;
-  return (int)forward(q, k, v, o, batch, seq, heads, kv_heads, dim, dtype, causal,
-                      window, scale, static_cast<cudaStream_t>(stream));
+  return (int)forward(q, k, v, o, static_cast<float*>(lse), batch, seq, heads, kv_heads,
+                      dim, dtype, causal, window, scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

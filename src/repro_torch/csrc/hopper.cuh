@@ -1,6 +1,9 @@
 // Hopper (sm_90a) building blocks in inline PTX: shared-memory addresses,
 // mbarriers, TMA tile loads and warpgroup matrix multiplies (wgmma) on bf16
-// operands with f32 accumulators. Used by csrc/flash_attn.cu.
+// operands with f32 accumulators; the tensor maps TMA reads (host side),
+// and the 64-row tile products both K5 kernels are built from. Used by
+// csrc/flash_attn.cu (K5's forward) and csrc/flash_attn_bwd.cu (its
+// backward).
 //
 // wgmma operands in shared memory are described by a 64-bit matrix
 // descriptor: start address >> 4 (bits 0-13), leading byte offset >> 4
@@ -15,7 +18,11 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -62,6 +69,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// ---- registers ---------------------------------------------------------------
+
+// Moves a warpgroup's per-thread register budget down or up (every warp of
+// the warpgroup executes it): a producer warpgroup gives registers up to
+// its consumers.
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ---- TMA -------------------------------------------------------------------
@@ -195,6 +216,161 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+// ---- 64-row bf16 tiles of a head dim D ----------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// A 64 x D bf16 tile in shared memory as TMA writes it: D split in panels
+// of kCols columns, each panel 64 rows of kRowBytes, swizzled: 128-byte
+// rows of 64 bf16 (D = 64; D = 128 and 256 as two and four panels),
+// 64-byte rows of 32 (D = 32; D = 160 as five panels).
+template <int D>
+struct Panels {
+  static constexpr int kCols = D % 64 == 0 ? 64 : 32;
+  static constexpr int kCount = D / kCols;
+  static constexpr int kRowBytes = kCols * 2;
+  static constexpr uint32_t kSwizzle = kRowBytes == 128 ? 1 : 2;  // descriptor
+  static constexpr int kBytes = 64 * D * 2;  // the whole tile
+  static_assert(D % kCols == 0, "D must be whole panels");
+};
+
+// acc (64 x 64, f32) = A B^T for two 64 x D tiles, both read K-major (rows
+// along D), over D in steps of 16: Q K^T, dO V^T and their transposes.
+template <int D>
+__device__ __forceinline__ void mma_ss(float (&acc)[32], uint32_t a_addr,
+                                       uint32_t b_addr) {
+  using P = Panels<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk * 16 % P::kCols) * 2;
+    const uint32_t panel = kk * 16 / P::kCols;
+    wgmma_ss(acc,
+             gmma_desc(a_addr + panel * 64 * P::kRowBytes + col, 16, 8 * P::kRowBytes,
+                       P::kSwizzle),
+             gmma_desc(b_addr + panel * 64 * P::kRowBytes + col, 16, 8 * P::kRowBytes,
+                       P::kSwizzle),
+             kk > 0);
+  }
+}
+
+// acc (64 x D, f32) += A_kk B_kk: the kk-th 16-row step of A (64 x 64, bf16
+// in wgmma's A registers, a[0..3]) times a 64 x D tile read MN-major (the
+// transpose bit): P V, dS K, P^T dO, dS^T Q. Up to D = 128 one wgmma spans
+// D (its leading byte offset steps between panels); above, one wgmma per
+// panel, each on its slice of the accumulator: the fragment of an n-wide
+// product is the fragments of its panels side by side.
+template <int D>
+__device__ __forceinline__ void mma_rs_k16(float (&acc)[D / 2], const uint32_t* a,
+                                           uint32_t b_addr, int kk) {
+  using P = Panels<D>;
+  if constexpr (D <= 128) {
+    wgmma_rs(acc, a[0], a[1], a[2], a[3],
+             gmma_desc(b_addr + kk * 16 * P::kRowBytes, 64 * P::kRowBytes,
+                       8 * P::kRowBytes, P::kSwizzle),
+             1);
+  } else {
+#pragma unroll
+    for (int p = 0; p < P::kCount; ++p) {
+      float(&part)[P::kCols / 2] =
+          *reinterpret_cast<float(*)[P::kCols / 2]>(&acc[p * P::kCols / 2]);
+      wgmma_rs(part, a[0], a[1], a[2], a[3],
+               gmma_desc(b_addr + (p * 64 + kk * 16) * P::kRowBytes,
+                         64 * P::kRowBytes, 8 * P::kRowBytes, P::kSwizzle),
+               1);
+    }
+  }
+}
+
+// ---- elementwise -----------------------------------------------------------
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// -inf: a masked score, whose exp2 is p = 0
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the two bf16 of a packed pair, as f32
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+// Calls f(std::integral_constant<int, D>) for D = dim in {32, 64, 128, 160,
+// 256}, K5's head dims; cudaErrorInvalidValue for another.
+template <typename F>
+cudaError_t by_dim(int64_t dim, F f) {
+  switch (dim) {
+    case 32:
+      return f(std::integral_constant<int, 32>{});
+    case 64:
+      return f(std::integral_constant<int, 64>{});
+    case 128:
+      return f(std::integral_constant<int, 128>{});
+    case 160:
+      return f(std::integral_constant<int, 160>{});
+    case 256:
+      return f(std::integral_constant<int, 256>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// ---- tensor maps (host) ----------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so a library
+// needs no -lcuda.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Tensor map over a contiguous (batch, seq, cols) bf16 array; boxes of
+// (panel_cols, rows, 1) with the swizzle the wgmma descriptors expect.
+// Rows past seq arrive as zeros.
+inline bool tensor_map(CUtensorMap* map, const void* ptr, int64_t batch, int64_t seq,
+                       int64_t cols, int panel_cols, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)(cols * seq) * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)panel_cols, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                panel_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                      : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

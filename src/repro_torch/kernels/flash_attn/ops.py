@@ -9,10 +9,14 @@ forward kernel's launches, ``flash_attention_bwd.launches`` the backward's.
 ``flash_attention`` is differentiable, under ``torch.autograd`` and under
 ``torch.func`` (``grad``, ``vjp``, ``vmap``): it is an
 ``autograd.Function`` whose backward is a second ``autograd.Function``,
-the backward op. Each has a ``vmap`` rule that folds the vmapped dimension
-into the batch (B) and makes one launch, so the clients of a round run as
-one call. A kernel or plain version never sees a batched or grad-tracking
-tensor: the Functions check that and raise.
+the backward op. The forward Function has two outputs, the attention and
+each row's log-sum-exp (f32 (B, H, S), not differentiable), which it saves
+for the backward op, so the backward kernel does not recompute it;
+``flash_attention`` returns the first, ``flash_attention_lse`` both. Each
+Function has a ``vmap`` rule that folds the vmapped dimension into the
+batch (B) and makes one launch, so the clients of a round run as one call.
+A kernel or plain version never sees a batched or grad-tracking tensor:
+the Functions check that and raise.
 """
 from __future__ import annotations
 
@@ -52,34 +56,35 @@ def _check_contiguous(**tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
+def _forward(q, k, v, causal: bool, window: int):
     require_plain("flash_attention", q, k, v)
     _check_contiguous(q=q, k=k, v=v)
     if not on_cuda(q, k, v):
-        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                        with_lse=True)
     out = _k.flash_attention(q, k, v, causal, window)
     flash_attention.launches += 1
     return out
 
 
-def _backward(q, k, v, o, do, causal: bool, window: int):
-    require_plain("flash_attention_bwd", q, k, v, o, do)
+def _backward(q, k, v, o, do, lse, causal: bool, window: int):
+    require_plain("flash_attention_bwd", q, k, v, o, do, lse)
     o, do = o.contiguous(), do.to(q.dtype).contiguous()
     _check_contiguous(q=q, k=k, v=v)
     if not on_cuda(q, k, v, o, do):
-        return _ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+        return _ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
                                             window=window)
-    grads = _k.flash_attention_bwd(q, k, v, o, do, causal, window)
+    grads = _k.flash_attention_bwd(q, k, v, o, do, lse, causal, window)
     flash_attention_bwd.launches += 1
     return grads
 
 
 class _FlashAttentionBwd(torch.autograd.Function):
-    """(q, k, v, o, do) -> (dq, dk, dv); not differentiable again."""
+    """(q, k, v, o, do, lse) -> (dq, dk, dv); not differentiable again."""
 
     @staticmethod
-    def forward(q, k, v, o, do, causal, window):
-        return _backward(q, k, v, o, do, causal, window)
+    def forward(q, k, v, o, do, lse, causal, window):
+        return _backward(q, k, v, o, do, lse, causal, window)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -90,14 +95,17 @@ class _FlashAttentionBwd(torch.autograd.Function):
         raise RuntimeError("flash_attention has no second derivative")
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, o, do, causal, window):
+    def vmap(info, in_dims, q, k, v, o, do, lse, causal, window):
         n = info.batch_size
-        args = [fold_batch(t, d, n) for t, d in zip((q, k, v, o, do), in_dims)]
+        args = [fold_batch(t, d, n)
+                for t, d in zip((q, k, v, o, do, lse), in_dims)]
         grads = _FlashAttentionBwd.apply(*args, causal, window)
         return tuple(unfold_batch(g, n) for g in grads), (0, 0, 0)
 
 
 class _FlashAttention(torch.autograd.Function):
+    """(q, k, v) -> (out, lse); lse is not differentiable."""
+
     @staticmethod
     def forward(q, k, v, causal, window):
         return _forward(q, k, v, causal, window)
@@ -105,13 +113,15 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         q, k, v, causal, window = inputs
-        ctx.save_for_backward(q, k, v, output)
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
 
     @staticmethod
-    def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = _FlashAttentionBwd.apply(q, k, v, o, do, ctx.causal,
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _FlashAttentionBwd.apply(q, k, v, o, do, lse, ctx.causal,
                                               ctx.window)
         return dq, dk, dv, None, None
 
@@ -119,8 +129,8 @@ class _FlashAttention(torch.autograd.Function):
     def vmap(info, in_dims, q, k, v, causal, window):
         n = info.batch_size
         args = [fold_batch(t, d, n) for t, d in zip((q, k, v), in_dims)]
-        out = _FlashAttention.apply(*args, causal, window)
-        return unfold_batch(out, n), 0
+        out, lse = _FlashAttention.apply(*args, causal, window)
+        return (unfold_batch(out, n), unfold_batch(lse, n)), (0, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -133,20 +143,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, S, H, D) in q's dtype. Any S; D in ``HEAD_DIMS`` (the forward's and
     the backward's); f32 or bf16; contiguous.
     """
+    return flash_attention_lse(q, k, v, causal=causal, window=window)[0]
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0):
+    """``flash_attention``'s output and each row's log-sum-exp of its masked,
+    scaled scores, f32 (B, H, S), from one launch: the pair
+    ``flash_attention_bwd`` takes. Differentiable in the output."""
     _check_inputs(q, k, v, window)
     return _FlashAttention.apply(q, k, v, bool(causal), int(window))
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, do: torch.Tensor, *,
-                        causal: bool = True, window: int = 0):
-    """The backward of ``flash_attention`` for the output ``o`` and its
-    cotangent ``do``: (dq, dk, dv) in the inputs' dtype."""
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        *, causal: bool = True, window: int = 0):
+    """The backward of ``flash_attention`` for the output ``o``, its rows'
+    ``lse`` (both as ``flash_attention_lse`` gives them) and the cotangent
+    ``do``: (dq, dk, dv) in the inputs' dtype."""
     _check_inputs(q, k, v, window)
+    b, s, h, _ = q.shape
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o and do must be {tuple(q.shape)}; got "
                          f"{tuple(o.shape)} and {tuple(do.shape)}")
-    return _FlashAttentionBwd.apply(q, k, v, o, do, bool(causal), int(window))
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous f32 ({b}, {h}, {s}); got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    return _FlashAttentionBwd.apply(q, k, v, o, do, lse, bool(causal),
+                                    int(window))
 
 
 flash_attention.launches = 0

@@ -7,12 +7,17 @@ kernel). It builds the (B, H, S, S) scores the kernel exists to avoid; the
 ``ops`` wrapper runs it for CPU tensors, and the tests and
 ``chip_smoke.py`` hold the kernel against it on the card.
 
+``flash_attention_ref(..., with_lse=True)`` also returns each row's
+log-sum-exp of its masked, scaled scores, f32 (B, H, S), as the kernel's
+forward writes it for the backward.
+
 ``flash_attention_bwd_ref`` is the backward written out as formulas (not
-autograd of the forward): the softmax recomputed from q and k, ``D_i =
-rowsum(do * o)`` from the output it is given, ``ds = p * (dp - D)``, and the
-grouped heads' dk and dv summed over each group. The ``ops`` backward runs
-it for CPU tensors; the tests pin it to ``torch.autograd`` of the plain
-forward and to ``jax.grad`` of the JAX package's attention.
+autograd of the forward): the softmax recomputed from q, k and the
+forward's lse (``p = exp(s - lse)``, as the kernel reads it), ``D_i =
+rowsum(do * o)`` from the output it is given, ``ds = p * (dp - D)``, and
+the grouped heads' dk and dv summed over each group. The ``ops``
+backward runs it for CPU tensors; the tests pin it to ``torch.autograd`` of
+the plain forward and to ``jax.grad`` of the JAX package's attention.
 """
 from __future__ import annotations
 
@@ -45,8 +50,10 @@ def band_mask(sq: int, sk: int, causal: bool, window: int,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, S, H, D), k, v: (B, S, Hkv, D) -> (B, S, H, D) in q's dtype."""
+                        causal: bool = True, window: int = 0,
+                        with_lse: bool = False):
+    """q: (B, S, H, D), k, v: (B, S, Hkv, D) -> (B, S, H, D) in q's dtype;
+    with ``with_lse``, also the rows' lse, f32 (B, H, S)."""
     n_rep = q.shape[2] // k.shape[2]
     kk = repeat_kv(k, n_rep).float()
     vv = repeat_kv(v, n_rep).float()
@@ -55,14 +62,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = band_mask(q.shape[1], k.shape[1], causal, window, q.device)
     s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if with_lse else out
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             o: torch.Tensor, do: torch.Tensor,
-                            causal: bool = True, window: int = 0):
-    """q, o, do: (B, S, H, D), k, v: (B, S, Hkv, D) -> (dq, dk, dv) in the
-    dtypes of q, k, v; every sum in f32."""
+                            lse: torch.Tensor, causal: bool = True,
+                            window: int = 0):
+    """q, o, do: (B, S, H, D), k, v: (B, S, Hkv, D), lse (B, H, S) -> (dq,
+    dk, dv) in the dtypes of q, k, v; every sum in f32."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     n_rep = h // hkv
@@ -73,7 +82,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.einsum("bqhd,bkhd->bhqk", qf, kk) * scale
     mask = band_mask(s, k.shape[1], causal, window, q.device)
     scores = torch.where(mask, scores, torch.full((), NEG_INF, device=q.device))
-    p = torch.softmax(scores, dim=-1)
+    p = torch.exp(scores - lse.float()[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vv)
     delta = (dof * o.float()).sum(-1).permute(0, 2, 1)  # (B, H, S)
     ds = p * (dp - delta[..., None])

@@ -37,7 +37,12 @@ rows, base and decoded rows bit for bit, distances rtol 1e-5).
 Slice F3: the backward kernels of K5 and K6 against their plain backward
 formulas, every sum f32: K5 f32 rtol 1e-4 / atol 1e-4 times the largest
 of the three gradients, bf16 rtol 8e-3 / atol 4e-3 times it (both round
-f32 sums to bf16 once, one ulp of the largest gradient apart at most); K6
+f32 sums to bf16 once, one ulp of the largest gradient apart at most; the
+bf16 kernels also round P and dS to bf16 once as the tensor cores take
+them, which ``tests/test_torch_flash_attn.py`` shows stays inside); both
+read the forward kernel's lse, itself held against the plain lse at rtol
+1e-5 / atol 1e-4 (f32 sums in other orders and the tensor cores' exp2;
+an lse 1e-4 off moves p by 1e-4 relative, far inside the bf16 tolerance); K6
 rtol 1e-4 / atol 1e-5 times the largest of its five gradients; both
 bit-identical across two launches. ``torch.func.grad`` of ``Model.loss`` (Hymba smoke, f32) on
 the card, vmapped over 3 clients, against the CPU: atol 1e-4 times the
@@ -1070,9 +1075,8 @@ def _grad_close(got, want, rtol, atol_rel):
                                    atol=atol_rel * scale)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,h,hkv,d,causal,window", [
+# (b, s, h, hkv, d, causal, window); each runs at f32 and bf16
+BWD_KERNEL_CASES = [
     (2, 200, 4, 2, 64, True, 0),
     (1, 300, 5, 1, 64, True, 50),
     (2, 130, 4, 4, 128, False, 0),
@@ -1082,28 +1086,51 @@ def _grad_close(got, want, rtol, atol_rel):
     (1, 1, 2, 1, 64, True, 0),
     (2, 150, 4, 1, 160, True, 0),     # stablelm-12b's head dim
     (1, 200, 4, 2, 160, True, 64),
-    (2, 150, 2, 2, 256, True, 0),     # gemma-7b's: staged D-chunks
+    (2, 150, 2, 2, 256, True, 0),     # gemma-7b's
     (1, 131, 4, 2, 256, False, 0),
     (1, 300, 2, 1, 256, True, 100),
-])
+    # every D at n_rep 1 / 4 / 5, window 0 / 1024, S 1, 63, 65, 3001: the
+    # tensor-core instances' edges (a CTA's second warpgroup past S, ragged
+    # tiles, a window wider than S)
+    (2, 63, 4, 4, 32, True, 0),
+    (1, 3001, 10, 2, 32, True, 1024),
+    (2, 65, 8, 2, 64, True, 1024),
+    (1, 3001, 25, 5, 64, True, 1024),
+    (1, 1, 4, 1, 128, True, 1024),
+    (2, 65, 4, 4, 128, True, 0),
+    (1, 3001, 8, 2, 128, True, 0),
+    (2, 63, 5, 1, 160, True, 1024),
+    (1, 3001, 4, 1, 160, True, 0),
+    (2, 65, 5, 1, 256, True, 0),
+    (1, 3001, 4, 4, 256, True, 1024),
+    (1, 1, 2, 2, 256, True, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,d,causal,window", BWD_KERNEL_CASES)
 def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, b, s, h, hkv,
                                                   d, causal, window):
+    """The backward kernel on the forward kernel's o and lse (the path the
+    training takes) against the plain backward on the same o and lse;
+    bit-identical twice."""
     g = torch.Generator().manual_seed(s + h + d)
     q = torch.randn(b, s, h, d, generator=g).to(cuda, dtype)
     k = torch.randn(b, s, hkv, d, generator=g).to(cuda, dtype)
     v = torch.randn(b, s, hkv, d, generator=g).to(cuda, dtype)
     do = torch.randn(b, s, h, d, generator=g).to(cuda, dtype)
-    o = fa_ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    o, lse = fa_ops.flash_attention_lse(q, k, v, causal=causal, window=window)
     fa_ops.reset_launches()
-    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                      window=window)
     torch.cuda.synchronize()
     assert fa_ops.flash_attention_bwd.launches == 1
-    again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                        window=window)
     assert all(torch.equal(x, y) for x, y in zip(got, again))  # no atomics
     want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
-                                          window=window)
+                                          window=window, lse=lse)
     if dtype == torch.float32:
         _grad_close(got, want, 1e-4, 1e-4)
     else:
@@ -1111,31 +1138,66 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, b, s, h, hkv,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,d,causal,window", [
+    (2, 200, 4, 2, 64, True, 0), (1, 3001, 25, 5, 64, True, 1024),
+    (2, 65, 4, 4, 32, False, 0), (2, 130, 8, 2, 128, True, 30),
+    (1, 1, 2, 1, 160, True, 0), (2, 63, 4, 1, 160, True, 1024),
+    (2, 150, 2, 2, 256, True, 0)])
+def test_flash_attention_lse_matches_plain(cuda, dtype, b, s, h, hkv, d,
+                                           causal, window):
+    """The forward kernel's lse against the plain lse; its output is the
+    output ``flash_attention`` gives, bit for bit."""
+    g = torch.Generator().manual_seed(s + h + d + 1)
+    q = torch.randn(b, s, h, d, generator=g).to(cuda, dtype)
+    k = torch.randn(b, s, hkv, d, generator=g).to(cuda, dtype)
+    v = torch.randn(b, s, hkv, d, generator=g).to(cuda, dtype)
+    out, lse = fa_ops.flash_attention_lse(q, k, v, causal=causal,
+                                          window=window)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, s)
+    assert torch.equal(out, fa_ops.flash_attention(q, k, v, causal=causal,
+                                                   window=window))
+    _, want = fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                         window=window, with_lse=True)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_flash_attention_bwd_kernel_names_its_head_dims(cuda):
-    """Every D of HEAD_DIMS launches; another D is refused by name."""
-    for d in fa_ops.HEAD_DIMS:
-        q = k = v = o = torch.zeros(1, 8, 2, d, device=cuda)
-        dq, dk, dv = fa_ops.flash_attention_bwd(q, k, v, o, o)
-        assert dq.shape == q.shape
+    """Every D of HEAD_DIMS launches, f32 and bf16; another D is refused by
+    name."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in fa_ops.HEAD_DIMS:
+            q = k = v = torch.zeros(1, 8, 2, d, device=cuda, dtype=dtype)
+            o, lse = fa_ops.flash_attention_lse(q, k, v)
+            dq, dk, dv = fa_ops.flash_attention_bwd(q, k, v, o, o, lse)
+            assert dq.shape == q.shape
     q = k = v = o = torch.zeros(1, 8, 2, 96, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
-        fa_ops.flash_attention_bwd(q, k, v, o, o)
+        fa_ops.flash_attention_bwd(q, k, v, o, o, lse)
 
 
 @pytest.mark.cuda
 def test_flash_attention_bwd_kernel_shared_memory_fits(cuda):
-    """The library states each instance's shared memory a block: D 160
+    """The library states each instance's shared memory a block: f32 D 160
     (whole tiles) and 256 (staged chunks) take 185,600 B (dQ) and 203,264 B
-    (dK/dV), and every D fits the card's opt-in limit."""
+    (dK/dV); the bf16 instances hold their warpgroups' 64 x D bf16 tiles and
+    a ring of walked tiles (and, in dK/dV, each walked tile's 64 lse and D
+    values); every D fits the card's opt-in limit."""
     from repro_torch.kernels.flash_attn import kernel as fa_kernel
 
     optin = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
-    for d in fa_ops.HEAD_DIMS:
-        dq, dkdv = fa_kernel.bwd_smem_bytes(d)
-        assert 0 < dq <= optin and 0 < dkdv <= optin
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in fa_ops.HEAD_DIMS:
+            dq, dkdv = fa_kernel.bwd_smem_bytes(d, dtype)
+            assert 0 < dq <= optin and 0 < dkdv <= optin
+        assert fa_kernel.bwd_smem_bytes(96, dtype) == (-1, -1)
     for d in (160, 256):
-        assert fa_kernel.bwd_smem_bytes(d) == (185_600, 203_264)
-    assert fa_kernel.bwd_smem_bytes(96) == (-1, -1)
+        assert fa_kernel.bwd_smem_bytes(d, torch.float32) == (185_600, 203_264)
+    assert {d: fa_kernel.bwd_smem_bytes(d, torch.bfloat16)
+            for d in fa_ops.HEAD_DIMS} == {
+        32: (50_248, 52_296), 64: (99_400, 101_448), 128: (197_704, 199_752),
+        160: (205_880, 207_416), 256: (197_672, 198_696)}
 
 
 @pytest.mark.cuda
