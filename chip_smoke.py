@@ -221,12 +221,35 @@ Phases, in order; any failure raises and exits non-zero:
    memory repair; (e) ``launch/train.py --arch deepseek-moe-16b --smoke``
    in a process of its own.
 
+12. Slice G, the Program builders of ``launch/program.py`` on the card at
+   full width in bf16, each on a 1 x 1 shape-only mesh, the batch one data
+   rank's share of the production shape (global_batch / 16): (a)
+   hymba-1.5b prefill_32k at full depth (B 2, S 32,768): exactly 32
+   launches each of K5 and K6, logits bit-identical to a direct
+   ``Model.prefill_logits`` call, tokens/s after a warm-up, peak memory;
+   (b) decode_32k (B 8, a 1,024-slot ring, 16 tokens): each token
+   bit-identical to a direct ``Model.decode_step``, tokens/s; (c) train_4k
+   through the cohort builder, 6 of 32 layers, cohort 1, b 1 (cut from
+   16), S 4096, ``DRYRUN_FL`` (M 2), fused, 1 warm-up + 2 timed rounds,
+   launches exact every round (K5 and K6 forward 5L, backward 2L, K1 1);
+   (d) K5's backward at qwen1.5-110b's training shape (B 1, S 4096, H
+   64/8, D 128, causal, bf16) against its plain backward and beside SDPA's
+   backward and its bound, then qwen1.5-110b train_4k through the dist
+   builder at full width, 1 of 80 layers, b 1, S 4096, buffer 2: two
+   contributions (the second applies), K5's launches exact, applied 0 then
+   1, version 0 -> 1, the peak within 72 GiB, the same bits from one state
+   twice, contributions/s; (e) ``python -m repro_torch.launch.dryrun``
+   for hymba-1.5b and qwen1.5-110b, four shapes each on the single-pod
+   mesh, one process an arch: every record ``ok``. Every Program's real
+   arguments are held to its ``arg_sds`` shapes and dtypes.
+
 The last two lines of standard output are the kernels' JSON record (with
 each kernel's launches in the cohort runs, in the population runs, a rank
 in each Slice E run, the Slice F2 prefill and the Slice F3 training run
-beside the main path's; K5's record lists its F2 shapes; the two backward
-kernels' records their launches in the training run and their other
-shapes) and ``{"ok": true, "device": {...}}``.
+beside the main path's, and in each of phase 12's Programs; K5's record
+lists its F2 shapes; the two backward kernels' records their launches in
+the training run and their other shapes, K5's its phase 12 shape) and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3673,6 +3696,392 @@ def slice_f4_phase(torch, np, kernel_ops, fa_ref, get_arch, smoke_variant,
     return out
 
 
+# Slice G (phase 12): the Program builders of launch/program.py on the card,
+# at full width in bf16, each built on a 1 x 1 shape-only mesh (the port's
+# LM is not tensor-parallel, nor is the JAX package's executed training), the
+# batch one data rank's share of the production shape (global_batch / 16)
+G_DATA_RANKS = 16
+G_DECODE_TOKENS = 16
+# (c) hymba-1.5b train_4k through the cohort builder: 6 of 32 layers (phase
+# 10(d)'s depth), b cut from 16 to 1, DRYRUN_FL (M = 2); 1 warm-up round
+G_COHORT_LAYERS, G_COHORT_ROUNDS, G_TRAIN_B = 6, 2, 1
+# (d) qwen1.5-110b train_4k through the dist builder: 1 of 80 layers at full
+# width (~3.85 B params, embed and head untied), buffer 2, so 2 steps apply
+G_DIST_LAYERS, G_DIST_BUFFER = 1, 2
+# (d) K5's backward at the dist run's shape: (B, S, H, Hkv, D, window, dtype)
+G_BWD_CASE = (1, 4096, 64, 8, 128, 0, "bfloat16")
+G_DRYRUN_ARCHS = ("hymba-1.5b", "qwen1.5-110b")
+
+
+def g_share(name: str, batch: int = 0):
+    """The production shape ``name`` at one data rank's share of its batch
+    (or at ``batch``)."""
+    from repro_torch.configs.base import INPUT_SHAPES, ShapeConfig
+
+    s = INPUT_SHAPES[name]
+    return ShapeConfig(s.name, s.seq_len, batch or s.global_batch
+                       // G_DATA_RANKS, s.kind)
+
+
+def g_flat(torch, tree, prefix=()):
+    """{path: (shape, dtype)} of a tree of tensors (dicts, named tuples,
+    tuples); a host int reads as () int32, as the Programs' specs do."""
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, tuple):
+        items = (list(zip(tree._fields, tree)) if hasattr(tree, "_fields")
+                 else list(enumerate(tree)))
+    elif isinstance(tree, int):
+        return {prefix: ((), torch.int32)}
+    else:
+        return {prefix: (tuple(tree.shape), tree.dtype)}
+    out = {}
+    for k, v in items:
+        out.update(g_flat(torch, v, prefix + (k,)))
+    return out
+
+
+def g_check_args(torch, prog, args) -> None:
+    """The real arguments have the Program's argument shapes and dtypes."""
+    got, want = g_flat(torch, tuple(args)), g_flat(torch, prog.arg_sds)
+    check(got == want, f"{prog.name}: arguments differ from arg_sds: "
+          f"{[k for k in want if got.get(k) != want[k]][:5]}")
+
+
+def g_batch(np, sds, vocab: int, rng):
+    """Host arrays shaped like the Program's batch: int32 tokens in the
+    vocabulary, f32 normals for the stub frontends."""
+    if isinstance(sds, dict):
+        return {k: g_batch(np, v, vocab, rng) for k, v in sds.items()}
+    shape = tuple(sds.shape)
+    if str(sds.dtype) == "torch.int32":
+        return rng.integers(0, vocab, shape).astype(np.int32)
+    return rng.normal(size=shape).astype(np.float32)
+
+
+def slice_g_phase(torch, np, kernel_ops, fa_ref, get_arch, Model,
+                  rate: float, card: str):
+    """Phase 12: the Program builders' steps on the card."""
+    import dataclasses as dc
+
+    from repro_torch.core.cohort import init_cohort_state, init_dist_state
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.launch.program import DRYRUN_FL, build_program
+
+    ops, rc_ops, fa_ops, ss_ops = kernel_ops
+    mesh = ShapeMesh((1, 1), ("data", "model"))
+
+    def reset():
+        for o in kernel_ops:
+            o.reset_launches()
+
+    def counts():
+        return {"fused_server": ops.server_update.launches,
+                "sq_dists": ops.sq_dists.launches,
+                "weighted_sum": ops.weighted_sum.launches,
+                "int8_sq_dists": rc_ops.int8_sq_dists.launches,
+                "flash_attention": fa_ops.flash_attention.launches,
+                "selective_scan": ss_ops.selective_scan.launches,
+                "flash_attention_bwd": fa_ops.flash_attention_bwd.launches,
+                "selective_scan_bwd": ss_ops.selective_scan_bwd.launches}
+
+    def only(**want):
+        return {k: want.get(k, 0) for k in counts()}
+
+    out = {"launches": {}}
+    gen = torch.Generator(device="cuda")
+
+    # (a) prefill: hymba-1.5b prefill_32k at full width and depth
+    t = time.perf_counter()
+    cfg = get_arch("hymba-1.5b").model
+    shape = g_share("prefill_32k")
+    prog = build_program("hymba-1.5b", "prefill_32k", mesh, shape=shape,
+                         device="cuda")
+    model = Model(cfg, device="cuda")
+    params = model.init(gen.manual_seed(0))
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (shape.global_batch, shape.seq_len)).astype(
+            np.int32)).cuda()}
+    g_check_args(torch, prog, (params, batch))
+    with torch.no_grad():
+        prog.step_fn(params, batch)  # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t1 = time.perf_counter()
+        logits = prog.step_fn(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+        got = counts()
+        peak = torch.cuda.max_memory_allocated()
+        direct = model.prefill_logits(params, batch)
+    want = only(flash_attention=cfg.num_layers, selective_scan=cfg.num_layers)
+    check(got == want, f"(a) prefill launches {got}, want {want}")
+    check(tuple(logits.shape) == (shape.global_batch, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "(a) prefill logits")
+    check(torch.equal(logits, direct),
+          "(a) the Program's prefill differs from Model.prefill_logits")
+    tokens = shape.global_batch * shape.seq_len
+    out["launches"]["prefill"] = got
+    out["prefill"] = dict(seconds=prefill_s, tokens_per_s=tokens / prefill_s,
+                          peak_gib=peak / 2**30,
+                          above_params_gib=(peak - base) / 2**30)
+    print(f"  (a) prefill Program, hymba-1.5b prefill_32k, B={shape.global_batch}"
+          f" S={shape.seq_len}, {cfg.num_layers} layers, bf16 ({card}): "
+          f"{prefill_s:.4f} s "
+          f"-> {tokens / prefill_s:,.0f} tokens/s (host clock, after a "
+          f"warm-up); peak {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f}"
+          f" GiB above the params and tokens); launches K5 "
+          f"{got['flash_attention']}, K6 {got['selective_scan']}; logits "
+          f"== Model.prefill_logits bit for bit; {time.perf_counter() - t:.1f}"
+          " s")
+    del logits, direct, batch
+
+    # (b) decode: hymba-1.5b decode_32k at full depth, B 8, 16 tokens
+    t = time.perf_counter()
+    shape = g_share("decode_32k")
+    prog = build_program("hymba-1.5b", "decode_32k", mesh, shape=shape,
+                         device="cuda")
+    check(prog.meta["cache_len"] == min(shape.seq_len, cfg.attn_window),
+          f"(b) cache_len {prog.meta['cache_len']}")
+    b = shape.global_batch
+    cache = model.init_cache(b, shape.seq_len)
+    check(cache["kv"]["k"].shape[2] == prog.meta["cache_len"],
+          "(b) ring length")
+    g_check_args(torch, prog, (params, cache, torch.zeros(
+        (b, 1), dtype=torch.int32, device="cuda"),
+        torch.zeros((), dtype=torch.int32)))
+    direct_cache = model.init_cache(b, shape.seq_len)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (G_DECODE_TOKENS, b, 1)).astype(np.int32)).cuda()
+    reset()
+    got_logits = []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(G_DECODE_TOKENS):
+            lg, cache = prog.step_fn(params, cache, toks[i], i)
+            got_logits.append(lg)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t1
+        got = counts()
+        for i in range(G_DECODE_TOKENS):
+            lg, direct_cache = model.decode_step(params, direct_cache,
+                                                 toks[i], i)
+            check(torch.equal(got_logits[i], lg),
+                  f"(b) token {i}: the Program's decode differs from "
+                  "Model.decode_step")
+    check(all(bool(torch.isfinite(x).all()) for x in got_logits),
+          "(b) decode logits not finite")
+    check(all(got[k] == 0 for k in ("fused_server", "sq_dists",
+                                    "weighted_sum", "int8_sq_dists",
+                                    "flash_attention_bwd",
+                                    "selective_scan_bwd")),
+          f"(b) decode launches {got}")
+    out["launches"]["decode"] = got
+    out["decode"] = dict(seconds=decode_s,
+                         tokens_per_s=b * G_DECODE_TOKENS / decode_s)
+    print(f"  (b) decode Program, hymba-1.5b decode_32k, B={b}, cache of "
+          f"{prog.meta['cache_len']} slots, {G_DECODE_TOKENS} tokens ({card})"
+          f": {b * G_DECODE_TOKENS / decode_s:.2f} tokens/s "
+          f"({decode_s:.4f} s, host clock); every token == Model.decode_step "
+          f"bit for bit; {time.perf_counter() - t:.1f} s")
+    del model, params, cache, direct_cache, got_logits, lg
+    torch.cuda.empty_cache()
+
+    # (c) cohort train: hymba-1.5b train_4k, 6 layers, cohort 1, b 1
+    t = time.perf_counter()
+    layers = G_COHORT_LAYERS
+    cfg = get_arch("hymba-1.5b").model.replace(num_layers=layers)
+    shape = g_share("train_4k", G_TRAIN_B)
+    prog = build_program("hymba-1.5b", "train_4k", mesh, fl=DRYRUN_FL,
+                         model_overrides={"num_layers": layers}, shape=shape,
+                         device="cuda")
+    check(prog.step_mesh is None and prog.meta["cohort"] == 1
+          and prog.meta["local_batch"] == G_TRAIN_B
+          and prog.meta["local_steps"] == DRYRUN_FL.local_steps,
+          f"(c) Program meta {prog.meta}")
+    params = Model(cfg, device="cuda").init(gen.manual_seed(1))
+    state = init_cohort_state(params, 1)
+    del params
+    m = DRYRUN_FL.local_steps
+    want = only(fused_server=1, flash_attention=(2 * m + 1) * layers,
+                selective_scan=(2 * m + 1) * layers,
+                flash_attention_bwd=m * layers,
+                selective_scan_bwd=m * layers)
+    rng = np.random.default_rng(2)
+    times, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(G_COHORT_ROUNDS + 1):
+        batch = {"local": g_batch(np, prog.arg_sds[1]["local"],
+                                  cfg.vocab_size, rng),
+                 "probe": g_batch(np, prog.arg_sds[1]["probe"],
+                                  cfg.vocab_size, rng),
+                 "arrival": np.ones((1,), np.float32),
+                 "data_sizes": np.full((1,), 1000.0, np.float32)}
+        if r == 0:
+            g_check_args(torch, prog, (state, {
+                k: (torch.from_numpy(v) if not isinstance(v, dict) else
+                    {kk: torch.from_numpy(vv) for kk, vv in v.items()})
+                for k, v in batch.items()}))
+        reset()
+        t1 = time.perf_counter()
+        state, mets = prog.step_fn(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        got = counts()
+        check(got == want, f"(c) round {r}: launches {got}, want {want}")
+        loss = float(mets["fresh_loss_mean"])
+        check(math.isfinite(loss), f"(c) round {r} loss {loss}")
+        check(int(state.version) == r + 1, f"(c) version after round {r}")
+        losses.append(loss)
+        if r:
+            times.append(dt)
+    peak = torch.cuda.max_memory_allocated()
+    trained = m * G_TRAIN_B * shape.seq_len
+    out["launches"]["cohort_train"] = want
+    out["cohort_train"] = dict(round_s=times,
+                               rounds_per_s=len(times) / sum(times),
+                               tokens_per_s=trained * len(times) / sum(times),
+                               peak_gib=peak / 2**30, losses=losses)
+    print(f"  (c) cohort-train Program, hymba-1.5b train_4k, {layers} of 32 "
+          f"layers, cohort 1, b={G_TRAIN_B}, S={shape.seq_len}, M={m}, fused "
+          f"({card}): rounds {', '.join(f'{x:.4f}' for x in times)} s after "
+          f"a warm-up of 1 -> {len(times) / sum(times):.4f} rounds/s, "
+          f"{trained * len(times) / sum(times):,.0f} trained tokens/s; peak "
+          f"{peak / 2**30:.2f} GiB; fresh loss {[round(x, 4) for x in losses]}"
+          f"; launches a round {want}; {time.perf_counter() - t:.1f} s")
+    del state, mets
+    torch.cuda.empty_cache()
+
+    # (d) K5's backward at qwen1.5-110b's training shape, then the dist step
+    t = time.perf_counter()
+    print("  (d) K5's backward at qwen1.5-110b's training shape:")
+    out["attn_bwd"] = attn_bwd_phase(torch, fa_ops, fa_ref, rate,
+                                     cases=(G_BWD_CASE,))[G_BWD_CASE]
+    torch.cuda.empty_cache()
+    layers = G_DIST_LAYERS
+    cfg = get_arch("qwen1.5-110b").model.replace(num_layers=layers)
+    shape = g_share("train_4k", G_TRAIN_B)
+    fl = dc.replace(DRYRUN_FL, buffer_size=G_DIST_BUFFER)
+    prog = build_program("qwen1.5-110b", "train_4k", mesh, fl=fl,
+                         model_overrides={"num_layers": layers}, shape=shape,
+                         device="cuda")
+    check(prog.meta["fl_mode"] == "distributed"
+          and prog.meta["local_batch"] == G_TRAIN_B, f"(d) meta {prog.meta}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = Model(cfg, device="cuda")
+    params = model.init(gen.manual_seed(3))
+    n_params = model.param_count(params)
+    rng = np.random.default_rng(3)
+    batches = [{"local": g_batch(np, prog.arg_sds[1]["local"],
+                                 cfg.vocab_size, rng),
+                "probe": g_batch(np, prog.arg_sds[1]["probe"],
+                                 cfg.vocab_size, rng),
+                "tau": np.int32(tau), "data_size": np.float32(size)}
+               for tau, size in ((0, 900.0), (1, 1300.0))]
+    m = fl.local_steps
+    want = only(flash_attention=(2 * m + 1) * layers,
+                flash_attention_bwd=m * layers)
+
+    def dist_run():
+        state = init_dist_state(params, fl)
+        times, mets_all = [], []
+        for i, batch in enumerate(batches):
+            reset()
+            t1 = time.perf_counter()
+            state, mets = prog.step_fn(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            got = counts()
+            check(got == want, f"(d) step {i}: launches {got}, want {want}")
+            check((mets["buffered"], mets["applied"]) == (i + 1, i),
+                  f"(d) step {i}: buffered {mets['buffered']}, applied "
+                  f"{mets['applied']}")
+            check(math.isfinite(float(mets["fresh_loss"])),
+                  f"(d) step {i} loss")
+            mets_all.append({k: float(v) for k, v in mets.items()})
+        check(state.version == 1 and state.count == 0,
+              f"(d) version {state.version}, count {state.count}")
+        return (state_digest(torch, (state.global_params,
+                                     state.update_norm_ring)),
+                mets_all, times)
+
+    state0 = init_dist_state(params, fl)
+    g_check_args(torch, prog, (state0._replace(count=G_DIST_BUFFER - 1), {
+        k: (torch.from_numpy(np.asarray(v)) if not isinstance(v, dict) else
+            {kk: torch.from_numpy(vv) for kk, vv in v.items()})
+        for k, v in batches[0].items()}))
+    del state0
+    torch.cuda.reset_peak_memory_stats()
+    first = dist_run()
+    peak = torch.cuda.max_memory_allocated()
+    check(peak - base <= TRAIN_PEAK_LIMIT,
+          f"(d) dist-train peak {(peak - base) / 2**30:.2f} GiB")
+    second = dist_run()
+    check(first[0] == second[0] and first[1] == second[1],
+          "(d) two runs from one state differ")
+    times = first[2] + second[2]
+    out["launches"]["dist_train"] = {k: 2 * v for k, v in want.items()}
+    out["dist_train"] = dict(params=n_params, step_s=times,
+                             contributions_per_s=len(times) / sum(times),
+                             peak_gib=peak / 2**30,
+                             above_base_gib=(peak - base) / 2**30,
+                             metrics=first[1])
+    print(f"  (d) dist-train Program, qwen1.5-110b train_4k at full width, "
+          f"{layers} of 80 layers ({n_params:,d} params), b={G_TRAIN_B}, "
+          f"S={shape.seq_len}, M={m}, buffer {G_DIST_BUFFER}, f32 "
+          f"accumulator ({card}): steps "
+          f"{', '.join(f'{x:.4f}' for x in times)} s -> "
+          f"{len(times) / sum(times):.4f} contributions/s (the first step "
+          f"of the first run pays cuBLAS set-up); peak {peak / 2**30:.2f} "
+          f"GiB; applied 0 then 1, version 0 -> 1; two runs from one state "
+          f"bit-identical; metrics {first[1]}; launches a step {want}; "
+          f"{time.perf_counter() - t:.1f} s")
+    del model, params
+    torch.cuda.empty_cache()
+
+    # (e) the dry run, one process an arch, both at once
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        procs = {arch: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--mesh", "single", "--out", tmp], cwd=str(ROOT),
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for arch in G_DRYRUN_ARCHS}
+        logs = {}
+        try:
+            for arch, proc in procs.items():
+                logs[arch] = proc.communicate(timeout=600)[0]
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for arch, proc in procs.items():
+            check(proc.returncode == 0, f"(e) dryrun --arch {arch} exited "
+                  f"{proc.returncode}: {logs[arch][-2000:]}")
+        recs = [json.loads(p.read_text()) for p in sorted(Path(tmp).glob(
+            "*.json"))]
+    check(len(recs) == 4 * len(G_DRYRUN_ARCHS)
+          and all(r["ok"] and "error" not in r and not r.get("skipped")
+                  for r in recs), "(e) dry-run records")
+    out["dryrun"] = [{k: r[k] for k in ("arch", "shape", "trace_s", "flops",
+                                         "memory")} for r in recs]
+    print(f"  (e) dry run (meta tensors, {', '.join(G_DRYRUN_ARCHS)} x 4 "
+          f"shapes, 16x16): every record ok; "
+          + "; ".join(f"{r['arch']} {r['shape']} {r['trace_s']} s, "
+                      f"{r['flops']:.3e} FLOP, "
+                      f"{r['memory']['argument_size_in_bytes'] / 2**30:.3f} "
+                      "GiB args a rank" for r in recs)
+          + f"; {time.perf_counter() - t:.1f} s")
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
     # a full-width training round fills most of the card in blocks of a few
@@ -4170,6 +4579,25 @@ def main() -> int:
                       for k, r in f4["train"].items() if "probe" not in k))
     print(f"  phase: {time.perf_counter() - t:.1f} s")
 
+    # 12. Slice G: the Program builders' steps on the card
+    t = time.perf_counter()
+    print(f"Slice G ({card}): the Program builders at full width, bf16, on a "
+          f"1 x 1 mesh: prefill, decode, cohort train, dist train; the dry "
+          f"run")
+    g = slice_g_phase(torch, np, (ops, rc_ops, fa_ops, ss_ops), fa_ref,
+                      get_arch, Model, rate, card)
+    print(f"  Slice G numbers ({card}): prefill "
+          f"{g['prefill']['tokens_per_s']:,.0f} tokens/s, peak "
+          f"{g['prefill']['peak_gib']:.2f} GiB; decode "
+          f"{g['decode']['tokens_per_s']:.2f} tokens/s; cohort train "
+          f"{g['cohort_train']['rounds_per_s']:.4f} rounds/s; dist train "
+          f"{g['dist_train']['contributions_per_s']:.4f} contributions/s, peak "
+          f"{g['dist_train']['peak_gib']:.2f} GiB; K5 backward at the qwen "
+          f"shape {g['attn_bwd']['ms']:.4f} ms (SDPA "
+          f"{g['attn_bwd']['library_ms']:.4f} ms, bound "
+          f"{g['attn_bwd']['bound_ms']:.4f} ms)")
+    print(f"  phase: {time.perf_counter() - t:.1f} s")
+
     # 9. records
     launches = {"fused_server": fused_counts["fused_server"],
                 "sq_dists": batched_counts["sq_dists"],
@@ -4199,7 +4627,9 @@ def main() -> int:
             "slice_f2_launches": ds["counts"][name_k],
             "slice_f3_launches": tr["counts"][name_k],
             "slice_f4_launches": {k: rr["counts"][name_k]
-                                  for k, rr in f4["train"].items()}})
+                                  for k, rr in f4["train"].items()},
+            "slice_g_launches": {k: c[name_k]
+                                 for k, c in g["launches"].items()}})
         if name_k == "flash_attention":
             kernels[-1]["f2_shapes"] = [
                 dict(r, prefill_launches=(ds["counts"][name_k]
@@ -4222,9 +4652,12 @@ def main() -> int:
             "other_shapes": [dict(rr, key=list(k)) for k, rr in (
                 f3["attn"] if name_k == "flash_attention_bwd"
                 else f3["scan"]).items() if rr is not r]})
+        kernels[-1]["slice_g_launches"] = {k: c[name_k]
+                                           for k, c in g["launches"].items()}
         if name_k == "flash_attention_bwd":
             kernels[-1]["f4_shapes"] = [dict(rr, key=list(k)) for k, rr in
                                         f4["attn"].items()]
+            kernels[-1]["g_shape"] = g["attn_bwd"]
             kernels[-1]["slice_f4_launches"] = {
                 k: rr["counts"][name_k] for k, rr in f4["train"].items()}
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")

@@ -33,6 +33,7 @@ from repro_torch.core.serving import (  # noqa: F401
 )
 from repro_torch.core.server_pass import (  # noqa: F401
     FlatSpec,
+    ShardedFlatSpec,
     apply_server_round,
     flatten_stacked,
     flatten_tree,
@@ -42,4 +43,11 @@ from repro_torch.core.server_pass import (  # noqa: F401
     unflatten_like,
     unflatten_stacked,
 )
-from repro_torch.core.simulator import run_async, run_async_legacy, run_sync  # noqa: F401
+from repro_torch.core.simulator import (  # noqa: F401
+    LatencyModel,
+    SimResult,
+    run_async,
+    run_async_legacy,
+    run_sync,
+    run_vectorized,
+)

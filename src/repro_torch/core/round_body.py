@@ -73,7 +73,12 @@ from repro_torch.core.weighting import (
 from repro_torch.sharding.collectives import all_gather_cat
 from repro_torch.sharding.specs import DATA_AXIS, MODEL_AXIS, mesh_axis_size
 from repro_torch.utils.device import DeviceLike
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import (
+    tree_leaves,
+    tree_map,
+    tree_map_with_path,
+    tree_paths,
+)
 
 
 def make_round_body(loss_fn: Callable, fl: FLConfig, device: DeviceLike,
@@ -332,10 +337,20 @@ def make_streaming_round_body(loss_fn: Callable,
             k_eff = torch.clamp(torch.as_tensor(
                 count, device=v_buf.device).to(torch.float32), min=1.0)
             scale = fl.global_lr / k_eff
-        upd = tree_map(lambda a: scale * a.to(torch.float32), accum)
-        new_params = tree_map(lambda x, u: x - u.to(x.dtype), params, upd)
-        unorm = torch.sum(torch.stack([torch.sum(torch.square(u))
-                                       for u in tree_leaves(upd)]))
+        # one leaf's f32 update at a time: a whole f32 update tree beside the
+        # accumulator and the new params would not fit a full-width layer
+        sq = {}
+
+        def leaf(path, x):
+            a = accum
+            for k in path:
+                a = a[k]
+            u = scale * a.to(torch.float32)
+            sq[path] = torch.sum(torch.square(u))
+            return x - u.to(x.dtype)
+
+        new_params = tree_map_with_path(leaf, params)
+        unorm = torch.sum(torch.stack([sq[p] for p in tree_paths(params)]))
         new_ring = torch.cat([unorm[None], update_norm_ring[:-1]])
         return new_params, new_ring
 

@@ -1,5 +1,5 @@
-"""Simulation entry points: ``run_async``, ``run_async_legacy`` and
-``run_sync``.
+"""Simulation entry points: ``run_async``, ``run_vectorized``,
+``run_async_legacy`` and ``run_sync``.
 
 The engine modules are imported inside the runners: ``repro_torch.sim.
 engine`` depends on ``repro_torch.core``, so a module-level import here
@@ -49,6 +49,12 @@ def run_async(loss_fn: Callable, init_params: Any, clients: Sequence,
     return runner(loss_fn, init_params, clients, fl, total_rounds,
                   eval_fn=eval_fn, eval_every=eval_every, latency=latency,
                   seed=seed, device=device, **kw)
+
+
+def run_vectorized(*args, **kw) -> SimResult:
+    """See ``repro_torch.sim.engine.run_vectorized`` (lazy wrapper)."""
+    from repro_torch.sim.engine import run_vectorized as f
+    return f(*args, **kw)
 
 
 def run_async_legacy(*args, **kw) -> SimResult:

@@ -5,6 +5,10 @@ As in the other kernel packages, the device decides: CPU tensors take the
 plain versions (``ref.py``), CUDA tensors launch the kernels or raise.
 There is no fallback and no switch. ``flash_attention.launches`` counts the
 forward kernel's launches, ``flash_attention_bwd.launches`` the backward's.
+On ``meta`` tensors (the dry run) both return empty ``meta`` outputs of
+the plain versions' shapes and dtypes: no arithmetic, no launch counted;
+``flash_attention.meta_calls`` records each such call's shapes instead, so
+the dry run can count the work a launch would do.
 
 ``flash_attention`` is differentiable, under ``torch.autograd`` and under
 ``torch.func`` (``grad``, ``vjp``, ``vmap``): it is an
@@ -24,7 +28,7 @@ import torch
 
 from repro_torch.kernels.flash_attn import kernel as _k
 from repro_torch.kernels.flash_attn import ref as _ref
-from repro_torch.utils.device import on_cuda
+from repro_torch.utils.device import on_cuda, on_meta
 from repro_torch.utils.fold import fold_batch, require_plain, unfold_batch
 
 HEAD_DIMS = (32, 64, 128, 160, 256)  # the forward's and the backward's
@@ -59,6 +63,12 @@ def _check_contiguous(**tensors) -> None:
 def _forward(q, k, v, causal: bool, window: int):
     require_plain("flash_attention", q, k, v)
     _check_contiguous(q=q, k=k, v=v)
+    if on_meta(q, k, v):  # shapes only: the plain version's outputs, empty
+        b, s, h, _ = q.shape
+        flash_attention.meta_calls.append(
+            ("forward", tuple(q.shape), k.shape[2], causal, window))
+        return (torch.empty_like(q),
+                torch.empty((b, h, s), dtype=torch.float32, device="meta"))
     if not on_cuda(q, k, v):
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                         with_lse=True)
@@ -71,6 +81,10 @@ def _backward(q, k, v, o, do, lse, causal: bool, window: int):
     require_plain("flash_attention_bwd", q, k, v, o, do, lse)
     o, do = o.contiguous(), do.to(q.dtype).contiguous()
     _check_contiguous(q=q, k=k, v=v)
+    if on_meta(q, k, v, o, do, lse):
+        flash_attention.meta_calls.append(
+            ("backward", tuple(q.shape), k.shape[2], causal, window))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if not on_cuda(q, k, v, o, do):
         return _ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
                                             window=window)
@@ -176,9 +190,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+# (direction, q's (B, S, H, D), Hkv, causal, window) of each meta call
+flash_attention.meta_calls = []
 
 
 def reset_launches() -> None:
-    """Set the wrappers' launch counts to 0."""
+    """Set the wrappers' launch counts to 0 and forget the meta calls."""
     flash_attention.launches = 0
     flash_attention_bwd.launches = 0
+    flash_attention.meta_calls.clear()

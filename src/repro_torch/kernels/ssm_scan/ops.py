@@ -5,6 +5,8 @@ As in the other kernel packages, the device decides: CPU tensors take the
 plain versions (``ref.py``), CUDA tensors launch the kernels or raise.
 There is no fallback and no switch. ``selective_scan.launches`` counts the
 forward kernel's launches, ``selective_scan_bwd.launches`` the backward's.
+On ``meta`` tensors (the dry run) both return empty ``meta`` outputs of
+the plain versions' shapes and dtypes: no arithmetic, no launch counted.
 
 ``selective_scan`` is differentiable, under ``torch.autograd`` and under
 ``torch.func`` (``grad``, ``vjp``, ``vmap``): it is an
@@ -24,7 +26,7 @@ import torch
 
 from repro_torch.kernels.ssm_scan import kernel as _k
 from repro_torch.kernels.ssm_scan import ref as _ref
-from repro_torch.utils.device import on_cuda
+from repro_torch.utils.device import on_cuda, on_meta
 from repro_torch.utils.fold import fold_batch, require_plain, unfold_batch
 
 STATE_SIZES = (4, 8, 16, 32)
@@ -62,6 +64,8 @@ def _check_contiguous(**tensors) -> None:
 def _forward(x, dt, b, c, a) -> torch.Tensor:
     require_plain("selective_scan", x, dt, b, c, a)
     _check_contiguous(x=x, dt=dt, b=b, c=c, a=a)
+    if on_meta(x, dt, b, c, a):  # shapes only: the plain version's output
+        return torch.empty_like(x)
     if not on_cuda(x, dt, b, c, a):
         return _ref.selective_scan_ref(x, dt, b, c, a)
     y = _k.selective_scan(x, dt, b, c, a)
@@ -73,6 +77,8 @@ def _backward(x, dt, b, c, a, dy):
     require_plain("selective_scan_bwd", x, dt, b, c, a, dy)
     dy = dy.contiguous()
     _check_contiguous(x=x, dt=dt, b=b, c=c, a=a)
+    if on_meta(x, dt, b, c, a, dy):
+        return tuple(torch.empty_like(t) for t in (x, dt, b, c, a))
     if not on_cuda(x, dt, b, c, a, dy):
         return _ref.selective_scan_bwd_ref(x, dt, b, c, a, dy)
     grads = _k.selective_scan_bwd(x, dt, b, c, a, dy)

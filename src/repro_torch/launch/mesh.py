@@ -3,17 +3,50 @@
 
 The port runs one process per rank, so a mesh larger than 1 x 1 needs a
 ``torch.distributed`` world (``launch/multihost.initialize``), and it covers
-the whole world. ``make_production_mesh`` (the TPU pod mesh of the LM dry
-run) is not ported here: it comes with the dry run (Slice F, ROADMAP.md).
+the whole world. ``make_production_mesh`` is the exception: the dry run's
+production mesh (the JAX package's TPU pod layout, (data 16, model 16) and
+a leading ``pod`` axis of 2 on the multi-pod mesh) as shapes and axis names
+only, which is all the sharding rules read.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
+import torch
 import torch.distributed as dist
 
 from repro_torch.launch import multihost
 from repro_torch.utils.device import DeviceLike
+
+
+class ShapeMesh:
+    """A mesh of axis names and sizes, with no ranks and no process group:
+    what ``sharding/specs.py::mesh_axis_size`` reads of a ``DeviceMesh``
+    (``mesh_dim_names`` and ``mesh.shape``; ``mesh`` is a ``meta`` tensor,
+    so nothing is allocated). A step cannot run on it; specs and per-rank
+    sizes can be read from it."""
+
+    device_type = "meta"
+
+    def __init__(self, shape: Tuple[int, ...], names: Tuple[str, ...]):
+        if len(shape) != len(names):
+            raise ValueError(f"mesh shape {shape} and names {names} differ "
+                             "in length")
+        self.mesh_dim_names = tuple(names)
+        self.mesh = torch.empty(tuple(shape), dtype=torch.int32,
+                                device="meta")
+
+    def __repr__(self) -> str:
+        return (f"ShapeMesh({tuple(self.mesh.shape)}, "
+                f"{self.mesh_dim_names})")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ShapeMesh:
+    """The production mesh as shapes only: (16, 16) ``("data", "model")``,
+    or (2, 16, 16) ``("pod", "data", "model")``."""
+    if multi_pod:
+        return ShapeMesh((2, 16, 16), ("pod", "data", "model"))
+    return ShapeMesh((16, 16), ("data", "model"))
 
 
 def make_host_mesh(model_parallel: int = 1, *, device: DeviceLike = "cuda"):

@@ -92,8 +92,10 @@ class Model:
         cfg = self.cfg
         if cfg.family == "dense" and cfg.tie_embeddings:
             # gemma-style input scaling, in the embedding's dtype
-            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
-                                 device=x.device)
+            # (torch.full, not torch.tensor: the latter detaches in place,
+            # which torch.func refuses on a meta tensor)
+            x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
+                               device=x.device)
         return x
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.sharding.specs import PartitionSpec, mesh_axis_size
+from repro_torch.sharding.specs import (
+    PartitionSpec,
+    entry_axes,
+    mesh_axis_size,
+)
 
 # host time spent in collectives (device waits included: staging a CUDA
 # tensor through the host synchronises its stream), read by shard_scale
@@ -163,16 +167,23 @@ class LocalShard(NamedTuple):
 
 
 def local_slice(value: torch.Tensor, mesh, spec: PartitionSpec) -> torch.Tensor:
-    """This rank's contiguous slice of ``value`` under ``spec`` (a view)."""
-    for dim, axis in enumerate(spec):
-        size = mesh_axis_size(mesh, axis) if axis else 1
+    """This rank's contiguous slice of ``value`` under ``spec`` (a view).
+
+    An entry naming several axes splits its dim over their product, the
+    first axis the major one (JAX's order)."""
+    for dim, entry in enumerate(spec):
+        size = mesh_axis_size(mesh, entry)
         if size <= 1:
             continue
         if value.shape[dim] % size:
             raise ValueError(f"dim {dim} of {tuple(value.shape)} does not "
-                             f"divide over {axis!r} ({size} shards)")
+                             f"divide over {entry!r} ({size} shards)")
+        index = 0
+        for axis in entry_axes(entry):
+            n = mesh_axis_size(mesh, axis)
+            index = index * n + (mesh.get_local_rank(axis) if n > 1 else 0)
         chunk = value.shape[dim] // size
-        value = value.narrow(dim, mesh.get_local_rank(axis) * chunk, chunk)
+        value = value.narrow(dim, index * chunk, chunk)
     return value
 
 
@@ -195,11 +206,14 @@ def put_replicated(tree: Any, mesh) -> Any:
 
 def gather_shards(shard: LocalShard) -> torch.Tensor:
     """The whole tensor from every rank's ``LocalShard``: one all-gather over
-    each sharded axis, joined in rank order. Every rank must call it."""
+    each sharded axis, joined in rank order. Every rank must call it. An
+    entry naming several axes is joined over its minor axis first, so the
+    first axis named stays the major one (``local_slice``'s order)."""
     out = shard.local
-    for dim, axis in enumerate(shard.spec):
-        if axis and mesh_axis_size(shard.mesh, axis) > 1:
-            out = all_gather_cat(out, shard.mesh.get_group(axis), dim)
+    for dim, entry in enumerate(shard.spec):
+        for axis in reversed(entry_axes(entry)):
+            if mesh_axis_size(shard.mesh, axis) > 1:
+                out = all_gather_cat(out, shard.mesh.get_group(axis), dim)
     return out
 
 

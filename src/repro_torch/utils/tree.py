@@ -56,6 +56,14 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree: Any) -> Any:
+    """``fn(path, leaf)`` over a nested dict's leaves (``tree_paths``'
+    paths), the structure kept (``jax.tree_util.tree_map_with_path``)."""
+    paths = tree_paths(tree)
+    return tree_unflatten(paths, [fn(p, leaf) for p, leaf in
+                                  zip(paths, tree_leaves(tree))])
+
+
 def tree_add(a: Any, b: Any) -> Any:
     return tree_map(torch.add, a, b)
 

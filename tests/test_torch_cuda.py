@@ -1104,6 +1104,7 @@ BWD_KERNEL_CASES = [
     (2, 65, 5, 1, 256, True, 0),
     (1, 3001, 4, 4, 256, True, 1024),
     (1, 1, 2, 2, 256, True, 0),
+    (1, 4096, 64, 8, 128, True, 0),  # qwen1.5-110b's training shape
 ]
 
 

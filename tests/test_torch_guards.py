@@ -103,7 +103,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.kernels.flash_attn.ref, repro_torch.core.client, "
             "repro_torch.core.round_body, repro_torch.core.server_pass, "
             "repro_torch.models.blocks, repro_torch.utils.tree, "
-            "repro_torch.launch.round_memory; "
+            "repro_torch.launch.round_memory, repro_torch.launch.dryrun, "
+            "repro_torch.launch.train_lm_federated, repro_torch.utils, "
+            "repro_torch.utils.pytree; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code],
@@ -117,6 +119,19 @@ def test_import_pulls_in_neither_jax_nor_repro():
 def no_cuda():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a CUDA device")
+
+
+def test_program_builders_and_lm_example_default_to_cuda_and_raise(no_cuda):
+    from repro_torch.launch import train_lm_federated
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.program import build_program
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_program("hymba-1.5b", "decode_32k", make_production_mesh())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_lm_federated.run(rounds=1, log=lambda msg: None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_lm_federated.main(["--rounds", "1"])
 
 
 def _setup():
