@@ -192,8 +192,11 @@ Phases, in order; any failure raises and exits non-zero:
    (b) K6's backward at the training shape (an A per slot), Hymba's widths
    with a shared and a per-row A and a ragged S (1001), the per-row-A
    forward against its plain version, bit-identical twice, beside its
-   bytes bound; (c) ``torch.func.grad`` of ``Model.loss`` at Hymba's full
-   width, 2 layers, S=512, f32: card against CPU, under ``vmap`` over 3
+   bytes bound, each record with ptxas's registers and spills of both its
+   kernels (every instance, N 4 to 32, at 0 spills: checked), the walk's
+   resident blocks an SM, the grid's waves and the share of the bound;
+   (c) ``torch.func.grad`` of ``Model.loss`` at Hymba's full width, 2
+   layers, S=512, f32: card against CPU, under ``vmap`` over 3
    clients against 3 calls (one launch a pass), ``ce_chunk`` and
    ``remat_block`` against the plain run; (d) the training run through
    ``launch/train.py``'s ``TrainLoop``: Hymba-1.5B at full width in bf16,
@@ -2911,10 +2914,42 @@ def attn_bwd_phase(torch, fa_ops, fa_ref, rate: float,
     return records
 
 
+def scan_bwd_usage(ss_kernel):
+    """ptxas's registers and spills (store / load bytes) of K6's backward
+    kernels, {label: {...}}: the walk at every N and the reduce kernel;
+    empty where this process did not build the library."""
+    usage = {}
+    for kname, (regs, st, ld) in ptxas_usage(
+            ss_kernel.BWD_LIBRARY.ptxas_info, "ss_bwd").items():
+        m = re.search(r"ss_bwd_kernelILi(\d+)E", kname)
+        label = f"ss_bwd_kernel<{m.group(1)}>" if m else "ss_bwd_reduce_kernel"
+        usage[label] = dict(registers=regs, spill_stores=st, spill_loads=ld)
+    return usage
+
+
 def scan_bwd_phase(torch, ss_ops, ss_ref, rate: float):
     """(b) K6's backward (and the per-row-a forward) against their plain
-    versions; per-case records."""
+    versions; per-case records, each with ptxas's registers and spills of
+    both kernels, the walk's resident blocks an SM, the grid's waves and the
+    share of the bound."""
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+
     di, n = HYMBA_DI, HYMBA_N
+    usage = scan_bwd_usage(ss_kernel)
+    if usage:  # every instance at 0 spills
+        check(len(usage) == len(ss_ops.STATE_SIZES) + 1,
+              f"K6 backward: ptxas reported {sorted(usage)}")
+        for label, u in usage.items():
+            check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
+                  f"K6 backward {label} spills: {u}")
+        print("    K6 backward ptxas: " + "; ".join(
+            f"{k} {u['registers']} registers, {u['spill_stores']} / "
+            f"{u['spill_loads']} B spilled" for k, u in sorted(usage.items())))
+    else:
+        print("    K6 backward ptxas: no report (the library was built by an "
+              "earlier process)")
+    resident = ss_kernel.backward_resident_blocks(n)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     records = {}
     for b, s, groups in SCAN_BWD_CASES:
         g = torch.Generator(device="cuda").manual_seed(b + s + groups)
@@ -2968,13 +3003,23 @@ def scan_bwd_phase(torch, ss_ops, ss_ref, rate: float):
             library_device_ms=None, max_abs_err=err,
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            shape=dict(b=b, s=s, di=di, n=n, a_groups=groups))
+            shape=dict(b=b, s=s, di=di, n=n, a_groups=groups),
+            ptxas={k: u for k, u in usage.items()
+                   if k in (f"ss_bwd_kernel<{n}>", "ss_bwd_reduce_kernel")},
+            resident_blocks_per_sm=resident,
+            grid_blocks=b * -(-di // 32))
+        r["waves"] = r["grid_blocks"] / (resident * sms)
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["burst_bound_share"] = r["bound_ms"] / r["burst_ms"]
         print(f"    K6 backward B={b} S={s:5d} di={di} N={n} a "
               f"{'per ' + str(b // groups) + ' rows' if groups else 'shared'}"
               f": kernel {r['ms']:.4f} ms (burst {r['burst_ms']:.4f})  plain "
               f"{fmt_ms(r['plain_ms'])} ms  library n/a  bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes:,d} B)  "
-              f"max_abs_err {err:.3g}")
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes:,d} B; "
+              f"{100 * r['bound_share']:.1f}% of it, burst "
+              f"{100 * r['burst_bound_share']:.1f}%)  max_abs_err {err:.3g}; "
+              f"{r['grid_blocks']} blocks, {resident} an SM on {sms} SMs: "
+              f"{r['waves']:.2f} waves")
         records[(b, s, groups)] = r
         del x, dt, bb, c, a, dy, args
         torch.cuda.empty_cache()
@@ -4648,12 +4693,16 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "burst_ms": r["burst_ms"], "shape": r["shape"],
+            "bound_share": r["bound_ms"] / r["ms"],
             "launches_per_round": tr["per_round"][name_k],
             "other_shapes": [dict(rr, key=list(k)) for k, rr in (
                 f3["attn"] if name_k == "flash_attention_bwd"
                 else f3["scan"]).items() if rr is not r]})
         kernels[-1]["slice_g_launches"] = {k: c[name_k]
                                            for k, c in g["launches"].items()}
+        if name_k == "selective_scan_bwd":
+            kernels[-1].update({k: r[k] for k in (
+                "ptxas", "resident_blocks_per_sm", "grid_blocks", "waves")})
         if name_k == "flash_attention_bwd":
             kernels[-1]["f4_shapes"] = [dict(rr, key=list(k)) for k, rr in
                                         f4["attn"].items()]

@@ -29,6 +29,7 @@ BWD_LIBRARY = CudaLibrary("ssm_scan_bwd", {
     "ssb_error_string": (ctypes.c_char_p, [_i32]),
     "ss_backward_workspace": (_i64, [_i64, _i64, _i64, _i64]),
     "ss_backward": (_i32, [_p] * 12 + [_i64] * 5 + [_p]),
+    "ss_backward_resident_blocks": (_i32, [_i64]),
 }, error_fn="ssb_error_string", extra_flags=("-Xptxas", "-v"))
 
 
@@ -49,6 +50,16 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
             a.data_ptr(), y.data_ptr(), bsz, s, di, a.shape[-1], a_rows(x, a),
             _stream(x)), "selective_scan")
     return y
+
+
+def backward_resident_blocks(n: int) -> int:
+    """Blocks of the backward's walk kernel at N = ``n`` that one SM holds
+    at once on the current device (registers and shared memory)."""
+    lib = BWD_LIBRARY.load()
+    blocks = lib.ss_backward_resident_blocks(n)
+    BWD_LIBRARY.check(lib, 0 if blocks > 0 else -blocks,
+                      "selective_scan_bwd resident")
+    return blocks
 
 
 def selective_scan_bwd(x, dt, b, c, a, dy):

@@ -59,6 +59,7 @@ from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.flash_attn import ref as fa_ref
 from repro_torch.kernels.ring_codec import ops as rc_ops
 from repro_torch.kernels.ring_codec import ref as rc_ref
+from repro_torch.kernels.ssm_scan import kernel as ss_kernel
 from repro_torch.kernels.ssm_scan import ops as ss_ops
 from repro_torch.kernels.ssm_scan import ref as ss_ref
 from repro_torch.kernels.weighted_agg import kernel, ops, ref
@@ -1202,10 +1203,17 @@ def test_flash_attention_bwd_kernel_shared_memory_fits(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,di,n,groups", [
-    (2, 100, 130, 16, 0), (4, 37, 70, 8, 4), (4, 33, 64, 32, 2),
-    (2, 1, 64, 4, 0), (3, 17, 33, 16, 3), (1, 1000, 64, 16, 0)])
-def test_selective_scan_bwd_kernel_matches_plain(cuda, b, s, di, n, groups):
+@pytest.mark.parametrize("b,s,di,n,groups,beyond_one_wave", [
+    (2, 100, 130, 16, 0, False), (4, 37, 70, 8, 4, False),
+    (4, 33, 64, 32, 2, False), (2, 1, 64, 4, 0, False),
+    (3, 17, 33, 16, 3, False), (1, 1000, 64, 16, 0, False),
+    # S one past a 16-step chunk, di one past a 32-channel block
+    (2, 17, 64, 32, 0, False), (2, 17, 33, 4, 1, False),
+    (2, 40, 33, 8, 2, False), (1, 33, 3201, 16, 0, False),
+    # more blocks than the card holds at once (400 at the training shape)
+    (8, 24, 3200, 16, 8, True)])
+def test_selective_scan_bwd_kernel_matches_plain(cuda, b, s, di, n, groups,
+                                                 beyond_one_wave):
     g = torch.Generator().manual_seed(b * 1000 + s + di + n)
     x = torch.randn(b, s, di, generator=g)
     dt = torch.nn.functional.softplus(torch.randn(b, s, di, generator=g) - 1)
@@ -1218,6 +1226,9 @@ def test_selective_scan_bwd_kernel_matches_plain(cuda, b, s, di, n, groups):
     y = ss_ops.selective_scan(*args[:5])
     torch.testing.assert_close(y, ss_ref.selective_scan_ref(*args[:5]),
                                rtol=1e-4, atol=1e-5 * float(y.abs().max()))
+    if beyond_one_wave:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert b * -(-di // 32) > ss_kernel.backward_resident_blocks(n) * sms
     ss_ops.reset_launches()
     got = ss_ops.selective_scan_bwd(*args)
     torch.cuda.synchronize()

@@ -105,7 +105,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.models.blocks, repro_torch.utils.tree, "
             "repro_torch.launch.round_memory, repro_torch.launch.dryrun, "
             "repro_torch.launch.train_lm_federated, repro_torch.utils, "
-            "repro_torch.utils.pytree; "
+            "repro_torch.utils.pytree, repro_torch.launch.k6_compare; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code],
