@@ -1,0 +1,16 @@
+"""k6_fwd_roofline.prefill: the least time the card could take for the traced units'
+launches of this kernel (``rooflines/kernels.py``, ``k6_fwd``) over the
+device time the profiler gives the kernel's operations, in %."""
+
+PARTS = ("selective_scan_kernel",)
+
+
+def read(facts):
+    cap = facts.get("capture")
+    bound = facts.get("kernel_bounds", {}).get("k6_fwd")
+    if cap is None or bound is None or not cap.units:
+        return None
+    sec = cap.device_s(*PARTS)
+    if sec <= 0:
+        return None
+    return 100.0 * bound * cap.units / sec
