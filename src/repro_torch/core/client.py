@@ -20,20 +20,28 @@ from typing import Callable
 import torch
 from torch.func import grad
 
+from repro_torch.obs.trace import NULL_TRACER, SPAN_LOCAL_FORWARD, Tracer
 from repro_torch.optim.optimizers import apply_updates, sgd
 from repro_torch.utils.tree import tree_map, tree_sub
 
 
 def make_local_update_fn(loss_fn: Callable, local_steps: int, local_lr: float,
                          momentum: float = 0.0,
-                         prox_mu: float = 0.0) -> Callable:
+                         prox_mu: float = 0.0, *,
+                         tracer: Tracer = NULL_TRACER) -> Callable:
     """loss_fn(params, batch) -> (scalar, metrics_dict).
 
     ``prox_mu > 0`` adds the FedProx proximal term mu/2 * ||w - w_base||^2
-    to each local step.
+    to each local step. ``tracer`` records each step's forward as a
+    ``local_forward`` span (the backward and the SGD update are outside it).
     """
     opt = sgd(local_lr, momentum=momentum)
-    grad_fn = grad(lambda p, b: loss_fn(p, b)[0])
+
+    def forward(p, b):
+        with tracer.span(SPAN_LOCAL_FORWARD):
+            return loss_fn(p, b)[0]
+
+    grad_fn = grad(forward)
 
     def local_update(base_params, batches):
         params, ostate = base_params, opt.init(base_params)

@@ -32,6 +32,12 @@ from repro_torch.core.round_body import (
     make_streaming_round_body,
 )
 from repro_torch.core.server_pass import make_flat_spec
+from repro_torch.obs.trace import (
+    NULL_TRACER,
+    SPAN_COHORT_STEP,
+    SPAN_RESYNC,
+    Tracer,
+)
 from repro_torch.utils.device import DeviceLike, resolve_device
 from repro_torch.utils.tree import (
     tree_leaves,
@@ -74,7 +80,8 @@ def init_cohort_state(params: Any, cohort: int) -> CohortState:
 
 def make_cohort_step(loss_fn: Callable, fl: FLConfig, *,
                      mesh: Optional[Any] = None,
-                     device: DeviceLike = "cuda") -> Callable:
+                     device: DeviceLike = "cuda",
+                     tracer: Tracer = NULL_TRACER) -> Callable:
     """Build the replicated-client FL round for state on ``device``.
 
     loss_fn(params, batch) -> (scalar, metrics). Batch layout (C slots):
@@ -91,15 +98,26 @@ def make_cohort_step(loss_fn: Callable, fl: FLConfig, *,
     flat-vector server pass over ``model`` (``core/round_body.py``); every
     rank steps the same replicated state with the same batch and gets the
     same new state. With no mesh the step is the single-device one.
+
+    ``tracer`` (default off) records each call as a ``cohort_step`` span
+    holding the round body's ``local_train``, ``probe`` and
+    ``server_pass`` and this step's ``resync``, and is the
+    ``active_tracer()`` for the call, so the model's MoE spans and the
+    kernel loads land in it too (``obs/trace.py``).
     """
     dev = resolve_device(device)
     bodies: Dict[Any, Callable] = {}  # one round body per params layout
 
     def step(state: CohortState, batch: Dict[str, Any]):
+        with tracer.span(SPAN_COHORT_STEP), tracer.activate():
+            return step_body(state, batch)
+
+    def step_body(state: CohortState, batch: Dict[str, Any]):
         params = state.global_params
         spec = make_flat_spec(params, fl.server_pass_block_n, mesh)
         if spec not in bodies:
-            bodies[spec] = make_round_body(loss_fn, fl, dev, spec, mesh=mesh)
+            bodies[spec] = make_round_body(loss_fn, fl, dev, spec, mesh=mesh,
+                                           tracer=tracer)
         arrival = torch.as_tensor(batch["arrival"]).to(dev, torch.float32)
         tau = (state.version - state.client_version).to(torch.float32)
 
@@ -111,42 +129,44 @@ def make_cohort_step(loss_fn: Callable, fl: FLConfig, *,
             tree_to_device(batch["probe"], dev),
             torch.as_tensor(batch["data_sizes"]).to(dev, torch.float32), tau,
             client_params=state.client_params, arrival_mask=arrival)
-        fresh, s, w = info["fresh_loss"], info["staleness"], info["weights"]
+        with tracer.span(SPAN_RESYNC):
+            fresh, s = info["fresh_loss"], info["staleness"]
+            w = info["weights"]
 
-        # arrivals re-sync; stragglers keep their local progress
-        def resync(new_src, stacked_old):
-            def leaf(g, old):
-                m = arrival.reshape((-1,) + (1,) * (old.dim() - 1))
-                return torch.where(m > 0, g[None].to(old.dtype), old)
-            return tree_map(leaf, new_src, stacked_old)
+            # arrivals re-sync; stragglers keep their local progress
+            def resync(new_src, stacked_old):
+                def leaf(g, old):
+                    m = arrival.reshape((-1,) + (1,) * (old.dim() - 1))
+                    return torch.where(m > 0, g[None].to(old.dtype), old)
+                return tree_map(leaf, new_src, stacked_old)
 
-        new_version = state.version + 1
-        new_state = CohortState(
-            new_global, resync(new_global, end_params),
-            resync(new_global, state.client_base),
-            torch.where(arrival > 0, new_version,
-                        state.client_version).to(torch.int32),
-            new_version)
+            new_version = state.version + 1
+            new_state = CohortState(
+                new_global, resync(new_global, end_params),
+                resync(new_global, state.client_base),
+                torch.where(arrival > 0, new_version,
+                            state.client_version).to(torch.int32),
+                new_version)
 
-        # round telemetry over ARRIVED slots only: stragglers must not
-        # pollute the mins/means; an empty round reports neutral 0.0s
-        n_arr = torch.sum(arrival)
-        any_arr = n_arr > 0
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
-        metrics = {
-            "fresh_loss_mean": torch.where(
-                any_arr, torch.sum(fresh * arrival) / torch.clamp(n_arr,
-                                                                  min=1.0),
-                zero),
-            "staleness_min": torch.where(
-                any_arr, torch.min(torch.where(arrival > 0, s, torch.inf)),
-                zero),
-            "weights_max": torch.where(
-                any_arr, torch.max(torch.where(arrival > 0, w, -torch.inf)),
-                zero),
-            "update_sq_norm": tree_sq_dist(params, new_global),
-        }
-        return new_state, metrics
+            # round telemetry over ARRIVED slots only: stragglers must not
+            # pollute the mins/means; an empty round reports neutral 0.0s
+            n_arr = torch.sum(arrival)
+            any_arr = n_arr > 0
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            metrics = {
+                "fresh_loss_mean": torch.where(
+                    any_arr,
+                    torch.sum(fresh * arrival) / torch.clamp(n_arr, min=1.0),
+                    zero),
+                "staleness_min": torch.where(
+                    any_arr,
+                    torch.min(torch.where(arrival > 0, s, torch.inf)), zero),
+                "weights_max": torch.where(
+                    any_arr,
+                    torch.max(torch.where(arrival > 0, w, -torch.inf)), zero),
+                "update_sq_norm": tree_sq_dist(params, new_global),
+            }
+            return new_state, metrics
 
     return step
 

@@ -70,6 +70,13 @@ from repro_torch.core.weighting import (
     staleness_degree,
     statistical_effect,
 )
+from repro_torch.obs.trace import (
+    NULL_TRACER,
+    SPAN_LOCAL_TRAIN,
+    SPAN_PROBE,
+    SPAN_SERVER_PASS,
+    Tracer,
+)
 from repro_torch.sharding.collectives import all_gather_cat
 from repro_torch.sharding.specs import DATA_AXIS, MODEL_AXIS, mesh_axis_size
 from repro_torch.utils.device import DeviceLike
@@ -82,7 +89,8 @@ from repro_torch.utils.tree import (
 
 
 def make_round_body(loss_fn: Callable, fl: FLConfig, device: DeviceLike,
-                    spec: FlatSpec, *, mesh: Optional[Any] = None) -> Callable:
+                    spec: FlatSpec, *, mesh: Optional[Any] = None,
+                    tracer: Tracer = NULL_TRACER) -> Callable:
     """Build the round body for tensors on ``device`` with params laid out
     as ``spec`` (``make_flat_spec``; the layout never changes in a run).
 
@@ -107,9 +115,14 @@ def make_round_body(loss_fn: Callable, fl: FLConfig, device: DeviceLike,
     or, under a model-sharded spec, this rank's slice of them (the sharded
     ring's rows); ``x`` and the returned ``new_x`` are whole, and the info
     is the same on every rank.
+
+    ``tracer`` records the round's phases in order, each a span:
+    ``local_train`` (the vmapped local update), ``probe`` (eq. 4) and
+    ``server_pass`` (the upload's flat rows through ``apply_server_round``
+    to the new params), and each local step's ``local_forward``.
     """
     local_update = make_local_update_fn(loss_fn, fl.local_steps, fl.local_lr,
-                                        fl.local_momentum)
+                                        fl.local_momentum, tracer=tracer)
     mode = resolve_mode(fl.server_pass_mode, device)
     clients_update = vmap(lambda base, batch: local_update(base, batch)[0])
     low_precision = any(dt != torch.float32 for dt in spec.dtypes)
@@ -149,43 +162,51 @@ def make_round_body(loss_fn: Callable, fl: FLConfig, device: DeviceLike,
                 start = all_gather_cat(start, model_group, dim=1)
             return unflatten_stacked(spec, start)
 
-        if client_params is None:
-            deltas = flatten_stacked(spec, clients_update(pulled(), batch))
-        else:
-            # in-flight slots advance M steps from their CURRENT local state;
-            # the upload is the cumulative delta from the pulled base
-            end_params = tree_map(lambda c, d: (c - d).to(c.dtype),
-                                  client_params,
-                                  clients_update(client_params, batch))
-            deltas = flatten_stacked_sub(spec, pulled(), end_params)
+        with tracer.span(SPAN_LOCAL_TRAIN):
+            if client_params is None:
+                updates = clients_update(pulled(), batch)
+            else:
+                # in-flight slots advance M steps from their CURRENT local
+                # state; the upload is the cumulative delta from the base
+                end_params = tree_map(lambda c, d: (c - d).to(c.dtype),
+                                      client_params,
+                                      clients_update(client_params, batch))
+        with tracer.span(SPAN_PROBE):
+            losses = vmap(lambda pb: loss_fn(params, pb)[0])(probe)
+            losses = losses.to(torch.float32)
+        with tracer.span(SPAN_SERVER_PASS):
+            if client_params is None:
+                deltas = flatten_stacked(spec, updates)
+                del updates
+            else:
+                deltas = flatten_stacked_sub(spec, pulled(), end_params)
+                if split:
+                    end_params = tree_map(
+                        lambda t: all_gather_cat(t, data_group), end_params)
+            deltas = local_columns(spec, deltas)
             if split:
-                end_params = tree_map(
-                    lambda t: all_gather_cat(t, data_group), end_params)
-        losses = vmap(lambda pb: loss_fn(params, pb)[0])(probe)
-        losses = losses.to(torch.float32)
-        deltas = local_columns(spec, deltas)
-        if split:
-            deltas = all_gather_cat(deltas, data_group)
-            losses = all_gather_cat(losses, data_group)
-        if not flat:  # the flat bases, made after the local training
-            bases = flatten_stacked(spec, bases)
-        if x is None:
-            x = flatten_tree(spec, params)
-        new_x, info = apply_server_round(
-            x[lo:hi], bases if sliced else local_columns(spec, bases),
-            deltas, losses, data_sizes, taus, fl, arrival_mask=arrival_mask,
-            mode=mode, sq_dists=sq_dists, mesh=mesh)
-        del x, bases, deltas
-        if model_group is not None:
-            new_x = all_gather_cat(new_x, model_group)
-        new_params = unflatten_like(spec, new_x)
-        if client_params is not None:
-            return new_params, end_params, info
-        # the ring row must hold the values clients receive: for f32
-        # params new_x already does; lower precision re-flattens the cast
-        # tree so a fresh (tau=0) client's eq. 3 distance stays exactly 0
-        if low_precision:
-            new_x = flatten_tree(spec, new_params)
+                deltas = all_gather_cat(deltas, data_group)
+                losses = all_gather_cat(losses, data_group)
+            if not flat:  # the flat bases, made after the local training
+                bases = flatten_stacked(spec, bases)
+            if x is None:
+                x = flatten_tree(spec, params)
+            new_x, info = apply_server_round(
+                x[lo:hi], bases if sliced else local_columns(spec, bases),
+                deltas, losses, data_sizes, taus, fl,
+                arrival_mask=arrival_mask, mode=mode, sq_dists=sq_dists,
+                mesh=mesh)
+            del x, bases, deltas
+            if model_group is not None:
+                new_x = all_gather_cat(new_x, model_group)
+            new_params = unflatten_like(spec, new_x)
+            if client_params is not None:
+                return new_params, end_params, info
+            # the ring row must hold the values clients receive: for f32
+            # params new_x already does; lower precision re-flattens the
+            # cast tree so a fresh (tau=0) client's eq. 3 distance stays 0
+            if low_precision:
+                new_x = flatten_tree(spec, new_params)
         return new_params, new_x, info
 
     return body

@@ -11,6 +11,10 @@ into place atomically.
 
 Nothing here runs at import time: the CPU tests import the kernel modules
 on machines without ``nvcc`` or a card.
+
+Under a traced call (``obs.trace.active_tracer()``) a library's first load
+in a process is a ``kernel_load`` span (args: ``library``, and ``built``:
+whether no build was there) and its nvcc run a ``kernel_build`` span.
 """
 from __future__ import annotations
 
@@ -25,6 +29,12 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 import torch
+
+from repro_torch.obs.trace import (
+    SPAN_KERNEL_BUILD,
+    SPAN_KERNEL_LOAD,
+    active_tracer,
+)
 
 PKG = Path(__file__).resolve().parents[1]  # src/repro_torch
 CSRC = PKG / "csrc"
@@ -84,9 +94,11 @@ class CudaLibrary:
                                    dir=BUILD_DIR)
         os.close(fd)
         try:
-            proc = subprocess.run(
-                [nvcc(), *self.flags, "-I", str(CSRC), "-o", tmp,
-                 str(self.source)], capture_output=True, text=True)
+            with active_tracer().span(SPAN_KERNEL_BUILD, cat="kernel",
+                                      library=self.name):
+                proc = subprocess.run(
+                    [nvcc(), *self.flags, "-I", str(CSRC), "-o", tmp,
+                     str(self.source)], capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed ({proc.returncode}) on {self.source}:\n"
@@ -103,7 +115,12 @@ class CudaLibrary:
         bound to their signatures."""
         with self._lock:
             if self._lib is None:
-                lib = ctypes.CDLL(str(self.build()))
+                tracer = active_tracer()
+                args = ({"library": self.name,
+                         "built": not self.path().exists()}
+                        if tracer.enabled else {})
+                with tracer.span(SPAN_KERNEL_LOAD, cat="kernel", **args):
+                    lib = ctypes.CDLL(str(self.build()))
                 for fn_name, (restype, argtypes) in self.signatures.items():
                     fn = getattr(lib, fn_name)
                     fn.restype = restype

@@ -14,7 +14,9 @@ come from ``numpy.random.default_rng(seed)``, as in the JAX launcher.
 
 ``TrainLoop`` holds the state and runs one round at a time; ``main`` and
 ``chip_smoke.py`` both drive it (the card run passes a config whose depth
-is cut).
+is cut). ``--trace-out`` writes each round's phases (``cohort_step`` and
+the spans inside it, ``obs/trace.py``) beside ``host_sync`` and
+``checkpoint``.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
@@ -43,6 +45,7 @@ from repro_torch.launch.cli import (
     add_seed_flag,
 )
 from repro_torch.models.model import build_model
+from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.sim.scenarios import LatencyModel
 from repro_torch.utils.device import DeviceLike, resolve_device
 from repro_torch.utils.tree import tree_leaves
@@ -115,7 +118,8 @@ class TrainLoop:
     """The launcher's state: the model, the cohort state, the step, the
     arrival schedule and the host rng that makes the batches.
 
-    ``params`` replaces the port's init (a test hands in JAX's weights).
+    ``params`` replaces the port's init (a test hands in JAX's weights);
+    ``tracer`` records the step's spans (``make_cohort_step``).
     On the card a config whose round cannot fit raises (``check_fits``).
     ``round(r)`` runs round ``r`` (0-based) and returns its metrics as
     tensors on the device; nothing in it waits for the device. The host
@@ -126,7 +130,8 @@ class TrainLoop:
 
     def __init__(self, cfg: ModelConfig, fl: FLConfig, *, cohort: int,
                  batch: int, seq: int, rounds: int, seed: int = 0,
-                 device: DeviceLike = "cuda", params: Any = None):
+                 device: DeviceLike = "cuda", params: Any = None,
+                 tracer: Tracer = NULL_TRACER):
         self.device = resolve_device(device)
         self.cfg, self.fl = cfg, fl
         self.cohort, self.batch, self.seq = cohort, batch, seq
@@ -143,7 +148,8 @@ class TrainLoop:
             params = self.model.init(
                 torch.Generator(device=self.device).manual_seed(seed))
         self.state = init_cohort_state(params, cohort)
-        self.step = make_cohort_step(self.model.loss, fl, device=self.device)
+        self.step = make_cohort_step(self.model.loss, fl, device=self.device,
+                                     tracer=tracer)
         self.sizes = torch.as_tensor(self.rng.integers(500, 2000, cohort),
                                      dtype=torch.float32)
         self.batch_s = 0.0
@@ -217,7 +223,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     fl = FLConfig(buffer_size=args.buffer_k, local_steps=2, local_lr=5e-3,
                   weighting=args.weighting, ring_codec=args.ring_codec)
     loop = TrainLoop(cfg, fl, cohort=cohort, batch=b, seq=seq,
-                     rounds=args.rounds, seed=args.seed, device=device)
+                     rounds=args.rounds, seed=args.seed, device=device,
+                     tracer=obs.tracer)
 
     from repro_torch.launch.program import make_io_hooks
     log, eval_metrics, maybe_save = make_io_hooks(

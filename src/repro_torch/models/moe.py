@@ -20,6 +20,11 @@ the compute dtype in ascending expert id, the order of JAX's scatter-add
 over the sorted entries. The combine gathers instead of scattering
 (``index_add_`` on the card sums in an atomics order that changes from run
 to run), so a card run is repeatable.
+
+Under a traced call (``obs.trace.active_tracer()``, which a traced
+``make_cohort_step`` sets) the dispatch and the combine are the
+``moe_dispatch`` and ``moe_combine`` spans; the experts between them are in
+neither.
 """
 from __future__ import annotations
 
@@ -29,6 +34,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import Init, dense_init, dtype_of
+from repro_torch.obs.trace import (
+    SPAN_MOE_COMBINE,
+    SPAN_MOE_DISPATCH,
+    active_tracer,
+)
 
 Params = Dict[str, object]
 
@@ -112,20 +122,23 @@ def dispatch_combine(cfg, p: Params, xf: torch.Tensor,
     buffer, run the experts, and combine. Returns y (T, d) in xf's dtype."""
     e = cfg.num_experts
     tg, d = xf.shape
-    plan = dispatch_plan(cfg, expert_ids, cap)
-    # kept entries fill unique slots; dropped ones land in a spare last row
-    # that is cut off (no host read to select the kept ones)
-    dest = torch.where(plan.keep, plan.slot,
-                       torch.full_like(plan.slot, e * cap))
-    buf = xf.new_zeros((e * cap + 1, d))
-    buf[dest] = xf[plan.token_idx]
+    tracer = active_tracer()
+    with tracer.span(SPAN_MOE_DISPATCH, cat="moe"):
+        plan = dispatch_plan(cfg, expert_ids, cap)
+        # kept entries fill unique slots; dropped ones land in a spare last
+        # row that is cut off (no host read to select the kept ones)
+        dest = torch.where(plan.keep, plan.slot,
+                           torch.full_like(plan.slot, e * cap))
+        buf = xf.new_zeros((e * cap + 1, d))
+        buf[dest] = xf[plan.token_idx]
     out_buf = _expert_ffn(p, buf[:-1].reshape(e, cap, d)).reshape(e * cap, d)
-    w = gate_vals.reshape(-1)[plan.sort_idx].to(out_buf.dtype)
-    terms = out_buf[plan.slot] * plan.keep[:, None].to(out_buf.dtype) \
-        * w[:, None]
-    y = terms[plan.order[:, 0]]
-    for j in range(1, plan.order.shape[1]):
-        y = y + terms[plan.order[:, j]]
+    with tracer.span(SPAN_MOE_COMBINE, cat="moe"):
+        w = gate_vals.reshape(-1)[plan.sort_idx].to(out_buf.dtype)
+        terms = out_buf[plan.slot] * plan.keep[:, None].to(out_buf.dtype) \
+            * w[:, None]
+        y = terms[plan.order[:, 0]]
+        for j in range(1, plan.order.shape[1]):
+            y = y + terms[plan.order[:, j]]
     return y
 
 

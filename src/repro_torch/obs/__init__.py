@@ -32,6 +32,7 @@ from repro_torch.obs.sink import (  # noqa: F401
     emit_snapshot,
 )
 from repro_torch.obs.trace import (  # noqa: F401
+    COHORT_SPAN_NAMES,
     NULL_TRACER,
     SPAN_APPLY,
     SPAN_CHECKPOINT,
@@ -39,7 +40,9 @@ from repro_torch.obs.trace import (  # noqa: F401
     SPAN_CONTRIBUTE,
     SPAN_HOST_SYNC,
     SPAN_NAMES,
+    SpanEdges,
     Tracer,
+    active_tracer,
     WindowedProfiler,
     span_coverage,
     validate_trace,

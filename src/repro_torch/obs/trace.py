@@ -21,17 +21,49 @@ profile collected by ``WindowedProfiler`` (or any ``torch.profiler``
 capture) shows host spans on the same timeline as the kernels they
 launched.
 
+The training path (``core/cohort.py``, ``core/round_body.py``,
+``core/client.py``, ``models/moe.py``; ``COHORT_SPAN_NAMES``) and the
+kernel builds (``kernels/cuda_build.py``) add spans of their own;
+``SPAN_NAMES`` stays the JAX package's:
+
+    cohort_step      one ``make_cohort_step`` call
+      local_train    C slots x M local steps (vmapped forward, backward, SGD)
+        local_forward  one local step's forward, inside the grad-ed loss
+      probe          the eq. 4 fresh-loss forward
+      server_pass    flat vectors, K1 / K2 + K3, eq. 3-5, unflatten
+      resync         arrivals' re-sync, versions, the round telemetry
+    moe_dispatch     MoE sort, capacity and buffer fill (in any forward)
+    moe_combine      MoE gathers and the weighted sum of the k outputs
+    kernel_load      a CUDA library's first load in a process
+      kernel_build   its nvcc run, when the build was not there
+
+Code below a traced entry point that takes no tracer (the MoE FFN inside
+``Model.loss``, the kernel loads) reaches it through ``active_tracer()``,
+which ``Tracer.activate`` sets for the length of a call. The slot is one
+per process, not per thread, so spans entered on the autograd engine's
+device thread (a rematerialised forward inside the backward) are recorded
+too.
+
+Clocks: the Chrome events keep ``perf_counter`` microseconds from the
+tracer's creation. ``Tracer.edges`` holds every span again with its edges
+in Unix-epoch nanoseconds, the clock ``torch.profiler``'s events carry, so
+a span and the kernels it launched can be lined up without recording the
+host's side of a profile; and, for the names in ``device_spans``, a pair
+of CUDA events recorded on the current stream at the span's edges, read
+after the traced work by ``read_device`` (one synchronize).
+
 Overhead contract: a disabled tracer (``Tracer(enabled=False)``, or the
 module ``NULL_TRACER``) returns one shared no-op context manager from
-``span`` — no allocation, no clock read — so instrumented code paths
-cost nothing when tracing is off.
+``span`` and ``activate`` — no allocation, no clock read, no CUDA event —
+so instrumented code paths cost nothing when tracing is off.
 """
 from __future__ import annotations
 
 import json
 import os
+import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Collection, Dict, List, Optional
 
 SPAN_COLLECT = "collect_window"
 SPAN_CONTRIBUTE = "contribute"
@@ -42,6 +74,20 @@ SPAN_TRANSPORT_DECODE = "transport_decode"
 SPAN_TRANSPORT_OFFER = "transport_offer"
 SPAN_NAMES = (SPAN_COLLECT, SPAN_CONTRIBUTE, SPAN_APPLY, SPAN_HOST_SYNC,
               SPAN_CHECKPOINT, SPAN_TRANSPORT_DECODE, SPAN_TRANSPORT_OFFER)
+
+SPAN_COHORT_STEP = "cohort_step"
+SPAN_LOCAL_TRAIN = "local_train"
+SPAN_LOCAL_FORWARD = "local_forward"
+SPAN_PROBE = "probe"
+SPAN_SERVER_PASS = "server_pass"
+SPAN_RESYNC = "resync"
+SPAN_MOE_DISPATCH = "moe_dispatch"
+SPAN_MOE_COMBINE = "moe_combine"
+COHORT_SPAN_NAMES = (SPAN_COHORT_STEP, SPAN_LOCAL_TRAIN, SPAN_LOCAL_FORWARD,
+                     SPAN_PROBE, SPAN_SERVER_PASS, SPAN_RESYNC,
+                     SPAN_MOE_DISPATCH, SPAN_MOE_COMBINE)
+SPAN_KERNEL_LOAD = "kernel_load"
+SPAN_KERNEL_BUILD = "kernel_build"
 
 
 def _annotation(name: str):
@@ -66,8 +112,26 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+class SpanEdges:
+    """One recorded span on the profiler's clock: ``start_ns`` and
+    ``end_ns`` in Unix-epoch nanoseconds (``time.time_ns()``'s domain,
+    which ``torch.profiler``'s events carry), ``thread`` the OS id of the
+    thread that recorded it, and ``device_ms`` the device time between
+    the CUDA events at its edges once ``Tracer.read_device`` has run (None
+    for a span without them)."""
+
+    __slots__ = ("name", "thread", "start_ns", "end_ns", "events",
+                 "device_ms")
+
+    def __init__(self, name: str, thread: int, start_ns: int, end_ns: int):
+        self.name, self.thread = name, thread
+        self.start_ns, self.end_ns = start_ns, end_ns
+        self.events = None
+        self.device_ms: Optional[float] = None
+
+
 class _Span:
-    __slots__ = ("tracer", "name", "cat", "args", "t0", "ann")
+    __slots__ = ("tracer", "name", "cat", "args", "t0", "ann", "events")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str,
                  args: Dict[str, Any]):
@@ -80,15 +144,42 @@ class _Span:
         self.ann = _annotation(self.name) if self.tracer.annotate else None
         if self.ann is not None:
             self.ann.__enter__()
+        self.events = None
+        if self.name in self.tracer.device_spans:
+            import torch
+
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         t1 = time.perf_counter()
+        if self.events is not None:
+            self.events[1].record()
         if self.ann is not None:
             self.ann.__exit__(*exc)
-        self.tracer.complete(self.name, self.t0, t1 - self.t0,
-                             cat=self.cat, **self.args)
+        edges = self.tracer.complete(self.name, self.t0, t1 - self.t0,
+                                     cat=self.cat, **self.args)
+        edges.events = self.events
+        return False
+
+
+class _Activation:
+    __slots__ = ("tracer", "prev")
+
+    def __init__(self, tracer: "Tracer"):
+        self.tracer = tracer
+
+    def __enter__(self):
+        global _ACTIVE
+        self.prev, _ACTIVE = _ACTIVE, self.tracer
+        return self
+
+    def __exit__(self, *exc):
+        global _ACTIVE
+        _ACTIVE = self.prev
         return False
 
 
@@ -104,37 +195,65 @@ class Tracer:
     """
 
     def __init__(self, enabled: bool = True, annotate: bool = True,
-                 tid: int = 0):
+                 tid: int = 0, device_spans: Collection[str] = ()):
         self.enabled = enabled
         self.annotate = annotate and enabled
         self.tid = tid
         self.events: List[Dict[str, Any]] = []
+        self.edges: List[SpanEdges] = []
         self.pid = os.getpid()
+        self.device_spans = frozenset(device_spans if enabled else ())
+        if self.device_spans:
+            import torch
+
+            if not torch.cuda.is_available():
+                raise ValueError("device_spans needs a CUDA device")
+        # the epoch clock at the perf_counter origin, read between two
+        # perf_counter reads
         self._t0 = time.perf_counter()
+        epoch = time.time_ns()
+        self._epoch0 = epoch - round((time.perf_counter() - self._t0) * 5e8)
 
     # -- recording ------------------------------------------------------
     def span(self, name: str, cat: str = "round", **args):
-        """Context manager timing one phase; no-op when disabled."""
+        """Context manager timing one phase; no-op when disabled. A name
+        in ``device_spans`` also records a CUDA event at each edge."""
         if not self.enabled:
             return _NULL_SPAN
         return _Span(self, name, cat, args)
+
+    def activate(self):
+        """Context manager making this tracer ``active_tracer()`` until
+        it exits (the previous one comes back); no-op when disabled."""
+        if not self.enabled:
+            return _NULL_SPAN
+        return _Activation(self)
+
+    def epoch_ns(self, t: float) -> int:
+        """The tracer clock's reading ``t`` (``now()``) in Unix-epoch ns."""
+        return self._epoch0 + round((t - self._t0) * 1e9)
 
     def now(self) -> float:
         """The tracer clock (perf_counter seconds) for retroactive events."""
         return time.perf_counter()
 
     def complete(self, name: str, t_start: float, duration: float,
-                 cat: str = "round", **args) -> None:
+                 cat: str = "round", **args) -> Optional[SpanEdges]:
         """Record a span retroactively from explicit clock readings —
         how the serving loop emits ``collect_window`` (its extent is only
-        known once the K-th fold lands)."""
+        known once the K-th fold lands). Returns its ``edges`` entry."""
         if not self.enabled:
-            return
+            return None
         self.events.append({
             "name": name, "cat": cat, "ph": "X",
             "ts": (t_start - self._t0) * 1e6, "dur": duration * 1e6,
             "pid": self.pid, "tid": self.tid,
             **({"args": args} if args else {})})
+        edges = SpanEdges(name, threading.get_native_id(),
+                          self.epoch_ns(t_start),
+                          self.epoch_ns(t_start + duration))
+        self.edges.append(edges)
+        return edges
 
     def instant(self, name: str, cat: str = "round", **args) -> None:
         if not self.enabled:
@@ -144,6 +263,20 @@ class Tracer:
             "ts": (time.perf_counter() - self._t0) * 1e6,
             "pid": self.pid, "tid": self.tid,
             **({"args": args} if args else {})})
+
+    def read_device(self) -> None:
+        """Fill ``device_ms`` of every span recorded with CUDA events and
+        not read yet: one synchronize, after the traced work, so nothing
+        inside a span waits for the device."""
+        pending = [e for e in self.edges if e.events is not None]
+        if not pending:
+            return
+        import torch
+
+        torch.cuda.synchronize()
+        for e in pending:
+            e.device_ms = e.events[0].elapsed_time(e.events[1])
+            e.events = None
 
     # -- export ---------------------------------------------------------
     def to_json(self) -> Dict[str, Any]:
@@ -158,6 +291,13 @@ class Tracer:
 
 
 NULL_TRACER = Tracer(enabled=False)
+_ACTIVE = NULL_TRACER
+
+
+def active_tracer() -> Tracer:
+    """The tracer of the traced call in progress (``Tracer.activate``),
+    else ``NULL_TRACER``."""
+    return _ACTIVE
 
 
 def validate_trace(doc: Dict[str, Any]) -> int:

@@ -10,7 +10,10 @@ init (``params_from_jax``); the cohort against the engine's ring round; the
 straggler carry-over; ``make_dist_step`` for 8 policies x {mean, none}
 against JAX's and against the exact ``apply_server_round``; the ``s_min``
 cap and the build-time ``normalize`` error; ``aggregate_fused`` against
-``aggregate`` and JAX's Pallas ``aggregate_fused`` (interpret mode).
+``aggregate`` and JAX's Pallas ``aggregate_fused`` (interpret mode). A
+traced step (``tracer=``) against an untraced one: its spans nest as
+``obs/trace.py`` lays out and its states are the same bits, on the
+quadratic problem in every mode and on Hymba-1.5B's smoke model.
 Tolerances: rtol 1e-5 / atol 1e-6 on the quadratic problem and the
 telemetry (the same f32 maths in other reduction orders); LeNet params
 atol 1e-5 over 3 rounds (two frameworks' CPU convolutions); the streaming
@@ -49,7 +52,10 @@ from repro_torch.core import (
     make_round_body,
     unflatten_like,
 )
-from repro_torch.models import lenet_loss, params_from_jax
+from repro_torch.configs import get_arch, smoke_variant
+from repro_torch.models import build_model, lenet_loss, params_from_jax
+from repro_torch.obs import Tracer
+from repro_torch.obs import trace as ttrace
 from repro_torch.sim.engine import init_version_ring
 from repro_torch.utils.tree import tree_leaves, tree_sq_dist
 
@@ -253,6 +259,73 @@ def test_engine_and_cohort_entry_shapes_agree():
     assert set(info_e) == set(info_c)
     for key in info_e:
         _close(info_e[key], info_c[key], key)
+
+
+ROUND_PHASES = [ttrace.SPAN_LOCAL_TRAIN, ttrace.SPAN_PROBE,
+                ttrace.SPAN_SERVER_PASS, ttrace.SPAN_RESYNC]
+
+
+def _inside(outer, inner):
+    return outer.start_ns <= inner.start_ns and inner.end_ns <= outer.end_ns
+
+
+def _check_traced_rounds(loss_fn, params, rounds, fl, annotate=False):
+    """Step ``rounds`` with and without a tracer: the same bits every
+    round, and each round's spans nest as ``cohort_step`` > the four
+    phases in order > ``local_forward`` x M inside ``local_train``."""
+    tr = Tracer(annotate=annotate)
+    plain = make_cohort_step(loss_fn, fl, device="cpu")
+    traced = make_cohort_step(loss_fn, fl, device="cpu", tracer=tr)
+    a = b = init_cohort_state(params, len(rounds[0]["arrival"]))
+    for batch in rounds:
+        a, met_a = plain(a, batch)
+        b, met_b = traced(b, batch)
+        for x, y in zip(tree_leaves({**a._asdict(), **met_a}),
+                        tree_leaves({**b._asdict(), **met_b})):
+            assert torch.equal(x, y)
+    steps = [e for e in tr.edges if e.name == ttrace.SPAN_COHORT_STEP]
+    assert len(steps) == len(rounds)
+    for step in steps:
+        inner = sorted((e for e in tr.edges if e is not step
+                        and _inside(step, e)), key=lambda e: e.start_ns)
+        phases = [e for e in inner if e.name in ROUND_PHASES]
+        assert [e.name for e in phases] == ROUND_PHASES
+        for first, then in zip(phases, phases[1:]):
+            assert first.end_ns <= then.start_ns
+        forwards = [e for e in inner if e.name == ttrace.SPAN_LOCAL_FORWARD]
+        assert len(forwards) == fl.local_steps
+        assert all(_inside(phases[0], e) for e in forwards)
+        assert {e.name for e in inner} <= set(ttrace.COHORT_SPAN_NAMES)
+    return tr
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_traced_cohort_step_spans_and_bits(mode):
+    _check_traced_rounds(_t_quad, {"w": torch.from_numpy(W0)},
+                         _quad_rounds(), TFL(**QUAD_KW,
+                                             server_pass_mode=mode))
+
+
+def test_traced_cohort_step_on_an_lm():
+    """Hymba-1.5B's smoke model under ``vmap(grad)``, every span also a
+    ``record_function`` (the launcher's tracer)."""
+    cfg = smoke_variant(get_arch("hymba-1.5b").model)
+    model = build_model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    c, m, s = 3, 2, 16
+
+    def toks(*lead):
+        t = torch.from_numpy(rng.integers(0, cfg.vocab_size, lead + (s + 1,)))
+        return {"tokens": t[..., :s], "labels": t[..., 1:]}
+
+    rounds = [{"local": toks(c, m, 1), "probe": toks(c, 2),
+               "arrival": torch.tensor(mask), "data_sizes":
+               torch.tensor([500.0, 900.0, 1300.0])}
+              for mask in ([1.0, 0.0, 1.0], [0.0, 1.0, 1.0])]
+    _check_traced_rounds(model.loss, params, rounds,
+                         TFL(buffer_size=2, local_steps=m, local_lr=5e-3,
+                             server_pass_mode="fused"), annotate=True)
 
 
 def test_straggler_semantics_preserved():

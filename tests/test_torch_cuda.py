@@ -46,7 +46,9 @@ an lse 1e-4 off moves p by 1e-4 relative, far inside the bf16 tolerance); K6
 rtol 1e-4 / atol 1e-5 times the largest of its five gradients; both
 bit-identical across two launches. ``torch.func.grad`` of ``Model.loss`` (Hymba smoke, f32) on
 the card, vmapped over 3 clients, against the CPU: atol 1e-4 times the
-largest gradient (cuBLAS vs CPU matmuls).
+largest gradient (cuBLAS vs CPU matmuls). A tracer span with device
+edges around a K1 launch: positive elapsed time covering the kernel's, and
+host edges holding the kernel on the profiler's clock.
 """
 import numpy as np
 import pytest
@@ -158,6 +160,33 @@ def test_cuda_wrappers_count_launches(cuda):
     ops.server_update(x, bases, deltas, p, taus, mask)
     assert (ops.sq_dists.launches, ops.weighted_sum.launches,
             ops.server_update.launches) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+def test_span_device_edges_hold_a_k1_launch(cuda):
+    """A span with device edges around one K1 launch and a synchronize:
+    the CUDA events' elapsed time is positive and covers the kernel's, and
+    the span's epoch-ns host edges hold the kernel's interval on
+    ``torch.profiler``'s clock (a device-only capture)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import Tracer
+
+    x, bases, deltas, p, taus, mask = _case(8, 600000, cuda)
+    ops.server_update(x, bases, deltas, p, taus, mask)  # load and warm
+    torch.cuda.synchronize()
+    tr = Tracer(annotate=False, device_spans=("server_pass",))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with tr.span("server_pass"):
+            ops.server_update(x, bases, deltas, p, taus, mask)
+            torch.cuda.synchronize()
+    tr.read_device()
+    (edges,) = tr.edges
+    (k1,) = [e for e in prof.profiler.kineto_results.events()
+             if "fused_server_kernel" in e.name()]
+    assert edges.start_ns < k1.start_ns() <= k1.end_ns() < edges.end_ns
+    assert edges.device_ms > 0
+    assert edges.device_ms >= (k1.end_ns() - k1.start_ns()) * 1e-6 - 1e-3
 
 
 @pytest.mark.cuda

@@ -16,6 +16,11 @@ relative, 2^-7 just above a power of two) away after each of the
 expert's three products and the combine's adds: rtol 2e-2, atol 2e-2 times
 the largest |y|, the same tolerance as ``tests/test_torch_lm.py``'s bf16
 forward.
+
+Under an active tracer (``obs.trace``) each token group's dispatch and
+combine are one ``moe_dispatch`` and one ``moe_combine`` span, in that
+order, with the same output bits as untraced; with no active tracer
+nothing is recorded.
 """
 import dataclasses
 
@@ -35,6 +40,8 @@ from repro_torch.configs import smoke_variant
 from repro_torch.models import blocks as t_blocks
 from repro_torch.models import lm_params_from_jax
 from repro_torch.models import moe as t_moe
+from repro_torch.obs import NULL_TRACER, Tracer
+from repro_torch.obs import trace as ttrace
 
 RTOL = ATOL_REL = 1e-5
 BF16_TOL = 2e-2
@@ -194,3 +201,22 @@ def test_decode_is_dropless():
     _close(ty, jy)
     np.testing.assert_allclose(ty[1:].numpy(), np.repeat(ty[:1].numpy(), 15,
                                                          axis=0), rtol=1e-6)
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_moe_spans(groups):
+    jc, tc = _cfg_pair("deepseek-moe-16b", moe_groups=groups)
+    _, tp = _moe_params(jc)
+    x = torch.from_numpy(_x(2, 8, tc.d_model))
+    want, _ = t_moe.moe_ffn(tc, tp, x)
+    assert NULL_TRACER.edges == []
+    tr = Tracer(annotate=False)
+    with tr.activate():
+        got, _ = t_moe.moe_ffn(tc, tp, x)
+    assert torch.equal(got, want)
+    names = [e.name for e in tr.edges]
+    assert names == [ttrace.SPAN_MOE_DISPATCH, ttrace.SPAN_MOE_COMBINE] \
+        * groups
+    for first, then in zip(tr.edges, tr.edges[1:]):
+        assert first.end_ns <= then.start_ns
+    assert {e["cat"] for e in tr.to_json()["traceEvents"]} == {"moe"}

@@ -7,10 +7,16 @@ events up to their clock readings, validation verdicts, coverage);
 ``summarize`` and its helpers on the same round log give the same
 numbers. The engine: for the same run both packages count the same
 dispatches and host syncs and record the same spans (names, categories,
-arguments) and the same event trace.
+arguments) and the same event trace. The port's own additions: span edges
+on ``torch.profiler``'s epoch clock (they hold the ops profiled inside),
+the active-tracer slot across threads, no CUDA event from a tracer that is
+off or from a span not asked for, and the kernel build and load spans.
 """
+import ctypes.util
 import json
 import math
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -161,6 +167,106 @@ def test_tracer_spans_open_profiler_ranges():
         with tr.span(tobs.SPAN_APPLY):
             torch.ones(4).sum()
     assert "apply" in {e.key for e in prof.key_averages()}
+
+
+def test_span_edges_hold_profiled_ops_on_the_profilers_clock():
+    """The epoch-ns edges of a span contain the ``start_ns()`` and
+    ``end_ns()`` the profiler gives a ``record_function`` op run inside it,
+    with the millisecond slept on each side between them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tr = tobs.Tracer(annotate=False)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tr.span(ttrace.SPAN_PROBE):
+            time.sleep(1e-3)
+            with torch.profiler.record_function("inner"):
+                torch.ones(64).sum()
+            time.sleep(1e-3)
+    (op,) = [e for e in prof.profiler.kineto_results.events()
+             if e.name() == "inner"]
+    (edges,) = tr.edges
+    assert edges.name == ttrace.SPAN_PROBE
+    assert edges.thread == threading.get_native_id()
+    assert edges.start_ns + 5e5 < op.start_ns() <= op.end_ns() \
+        < edges.end_ns - 5e5
+    (ev,) = tr.to_json()["traceEvents"]  # the Chrome event is unchanged
+    assert set(ev) == {"name", "cat", "ph", "ts", "dur", "pid", "tid"}
+    assert abs(ev["dur"] * 1e3 - (edges.end_ns - edges.start_ns)) < 1e3
+    assert abs(tr.epoch_ns(tr.now()) - time.time_ns()) < 1e6
+
+
+def test_tracer_off_makes_no_cuda_event(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA event was made")
+
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    off = tobs.Tracer(enabled=False, device_spans=ttrace.COHORT_SPAN_NAMES)
+    assert off.span(ttrace.SPAN_MOE_DISPATCH) is tobs.NULL_TRACER.span(
+        "apply") is off.activate()
+    with off.span(ttrace.SPAN_MOE_DISPATCH), off.activate():
+        assert tobs.active_tracer() is tobs.NULL_TRACER
+    assert off.events == off.edges == [] and not off.device_spans
+    on = tobs.Tracer()  # no device_spans: host edges only
+    with on.span(ttrace.SPAN_MOE_DISPATCH):
+        pass
+    on.read_device()
+    assert on.edges[0].device_ms is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="CUDA"):
+        tobs.Tracer(device_spans=(ttrace.SPAN_MOE_DISPATCH,))
+
+
+def test_active_tracer_is_one_slot_for_every_thread():
+    """``activate`` nests and restores; a thread started inside (as the
+    autograd engine's device thread runs a backward) sees the tracer and
+    records its span under its own OS thread id."""
+    outer, inner = tobs.Tracer(annotate=False), tobs.Tracer(annotate=False)
+    assert tobs.active_tracer() is tobs.NULL_TRACER
+    with outer.activate():
+        with inner.activate():
+            assert tobs.active_tracer() is inner
+        assert tobs.active_tracer() is outer
+
+        def worker():
+            with tobs.active_tracer().span(ttrace.SPAN_MOE_COMBINE):
+                pass
+
+        t = threading.Thread(target=worker)
+        t.start()
+        t.join(timeout=30)
+        assert not t.is_alive()
+    assert tobs.active_tracer() is tobs.NULL_TRACER
+    (edges,) = outer.edges
+    assert edges.name == ttrace.SPAN_MOE_COMBINE
+    assert edges.thread != threading.get_native_id()
+    assert inner.edges == []
+
+
+def test_kernel_build_and_load_spans(monkeypatch, tmp_path):
+    """A traced first load is a ``kernel_load`` span naming the library
+    and whether it had to be built; the build's nvcc run is a
+    ``kernel_build`` span (nvcc and the library stand-ins here: the CPU
+    has no nvcc)."""
+    from repro_torch.kernels import cuda_build
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "nvcc", lambda: "true")
+    lib = cuda_build.CudaLibrary("weighted_agg", {}, "none")
+    tr = tobs.Tracer(annotate=False)
+    with tr.activate():
+        assert lib.build() == lib.path()  # an empty file from "true"
+    assert [e.name for e in tr.edges] == [ttrace.SPAN_KERNEL_BUILD]
+    monkeypatch.setattr(lib, "build",
+                        lambda: ctypes.util.find_library("c"))
+    lib.path().unlink()
+    with tr.activate():
+        lib.load()
+        lib.load()  # loaded once a process: no second span
+    load = tr.to_json()["traceEvents"][-1]
+    assert (load["name"], load["cat"], load["args"]) == (
+        ttrace.SPAN_KERNEL_LOAD, "kernel",
+        {"library": "weighted_agg", "built": True})
+    assert len(tr.edges) == 2
 
 
 def test_windowed_profiler_exports_chrome_traces(tmp_path):
