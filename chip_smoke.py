@@ -145,10 +145,18 @@ Phases, in order; any failure raises and exits non-zero:
    the rows' lse each writes for the backward against the plain lse.
    At the prefill's shapes K5, SDPA and K6 are also timed as a burst of
    back-to-back calls (device time: these kernels outlast their dispatch);
-   K6 also at the ragged S.
+   K6 also at the ragged S. The RMSNorm kernels (``csrc/rms_norm.cu``,
+   forward and backward) against the plain chain at the prefill cell's
+   rows (2 x 32,768 x 1,600, bf16, one weight), the Hymba training cell's
+   (4 slots x 2,048 x 1,600, bf16, a weight a slot) and the DeepSeekMoE
+   training cell's (2 slots x 2,048 x 2,048, a weight a slot: the 8-vector
+   instances), bit-identical over two launches, timed per call and as a
+   burst beside their bytes bound and the plain chain; ptxas's registers
+   and spills of each instance, and of the instances each case runs.
 8. LM serving path, Hymba-1.5B at full width: ``Model.prefill_logits`` at
    full depth (32 layers, bf16, port init from a seeded generator on the
-   card), B=2, S=4096, launching K5 and K6 exactly 32 times each, finite
+   card), B=2, S=4096, launching K5 and K6 exactly 32 times each and the
+   RMSNorm forward 4 x 32 + 1 times, finite
    logits, prefill tokens/s and peak memory, and a ``torch.profiler``
    capture of one warm prefill (its ten largest device operations, K5's
    and K6's share, K6's device time per launch); the same weights at 2
@@ -338,6 +346,12 @@ ATTN_CASES = ((4096, 1024, "bfloat16"), (4096, 1024, "float32"),
               (4096, 0, "bfloat16"), (4096, 0, "float32"),
               (3001, 1024, "bfloat16"), (700, 1024, "float32"))
 SCAN_SEQS = (4096, 1001)  # the first is the prefill's
+# RMSNorm rows (label, rows, weight groups, d), bf16: the Hymba prefill
+# cell's B 2 x S 32,768 with one weight, the Hymba training cell's C 4 slots
+# x b 1 x S 2,048 with a weight a slot (d 1,600: 7 vectors a lane), and the
+# DeepSeekMoE training cell's C 2 slots at d 2,048 (8 vectors a lane)
+NORM_CASES = (("prefill", 2 * 32768, 1, 1600), ("train", 4 * 2048, 4, 1600),
+              ("dsmoe-train", 2 * 2048, 2, 2048))
 
 SOURCES = {"fused_server": "src/repro_torch/csrc/weighted_agg.cu",
            "sq_dists": "src/repro_torch/csrc/weighted_agg.cu",
@@ -895,15 +909,115 @@ def scan_kernel_phase(torch, ss_ops, ss_ref, rate: float):
     return records
 
 
+def norm_launches(cfg, grads: int = 0, forwards: int = 1):
+    """(forward, backward) RMSNorm launches of ``forwards`` forwards
+    (prefill, probe, decode step) and ``grads`` gradients of ``Model.loss``
+    of ``cfg``, the vmapped calls of a pass folded into one launch: a
+    gradient runs each layer's norms twice (the layer's remat recompute)
+    and the final norm once, and backward each once."""
+    if cfg.norm != "rmsnorm":
+        return 0, 0
+    per_layer = (4 if cfg.is_hybrid else 1 if cfg.is_ssm_only else 2) \
+        + 2 * bool(cfg.qk_norm)
+    n = per_layer * cfg.num_layers
+    return forwards * (n + 1) + grads * (2 * n + 1), grads * (n + 1)
+
+
+def norm_kernel_phase(torch, rn_kernel, rn_ops, rn_ref, rate: float):
+    """Hold the RMSNorm kernels against their plain versions at
+    ``NORM_CASES``; returns per-case records."""
+    # registers and spills of every instance, printed at the end; each case
+    # also prints those of the bf16 "rows" instances it runs
+    usage = ptxas_usage(rn_kernel.LIBRARY.ptxas_info, "rms_")
+    records = {}
+    for label, rows, groups, d in NORM_CASES:
+        g = torch.Generator(device="cuda").manual_seed(rows + groups)
+        x = (3 * torch.randn(rows, d, device="cuda", generator=g)).to(
+            torch.bfloat16)
+        dy = torch.randn(rows, d, device="cuda", generator=g).to(
+            torch.bfloat16)
+        w = 0.1 * torch.randn((groups, d) if groups > 1 else (d,),
+                              device="cuda", generator=g)
+        rn_ops.reset_launches()
+        y, rstd = rn_ops.rms_norm_rstd(x, w)
+        dx, dw = rn_ops.rms_norm_bwd(x, w, rstd, dy)
+        again = rn_ops.rms_norm_rstd(x, w) + rn_ops.rms_norm_bwd(x, w, rstd,
+                                                                  dy)
+        torch.cuda.synchronize()
+        check((rn_ops.rms_norm.launches, rn_ops.rms_norm_bwd.launches)
+              == (2, 2), "RMSNorm launches")
+        check(all(torch.equal(a, b) for a, b in zip((y, rstd, dx, dw), again)),
+              f"RMSNorm not bit-identical ({label})")
+        want_y, _ = rn_ref.rms_norm_ref(x, w)
+        ulps = int((y.view(torch.int16).int()
+                    - want_y.view(torch.int16).int()).abs().max())
+        check(ulps <= 1, f"RMSNorm y vs plain ({label}): {ulps} bf16 ulps")
+        want_dx, want_dw = rn_ref.rms_norm_bwd_ref(x, w, dy)
+        dx_err = float((dx.float() - want_dx.float()).abs().max()) / float(
+            want_dx.float().abs().max())
+        dw_err = float((dw - want_dw).abs().max()) / float(
+            want_dw.abs().max())
+        check(dx_err <= 2.0 ** -8 and dw_err <= 1e-4,
+              f"RMSNorm backward vs plain ({label}): dx {dx_err:.3g}, dw "
+              f"{dw_err:.3g} of the largest")
+        del want_y, want_dx, want_dw
+        fwd_bytes = 2 * rows * d * 2 + groups * d * 4 + rows * 4
+        bwd_bytes = 3 * rows * d * 2 + rows * 4 + 2 * groups * d * 4
+        # the instance of a bf16 row: 8 elements a vector, a warp a row
+        nv = -(-(d // 8) // 32)
+        ptxas = {kind: v for kind in ("fwd", "bwd") for k, v in usage.items()
+                 if f"rms_{kind}_rowsI13__nv_bfloat16Li{nv}E" in k}
+        r = dict(
+            rows=rows, d=d, groups=groups, y_ulps=ulps, dx_err=dx_err,
+            dw_err=dw_err, vectors_a_lane=nv, ptxas=ptxas,
+            ms=time_ms(torch, lambda: rn_ops.rms_norm(x, w)),
+            burst_ms=time_burst(torch, lambda: rn_ops.rms_norm(x, w), n=50),
+            plain_ms=time_ms(torch, lambda: rn_ref.rms_norm_ref(x, w),
+                             reps=10),
+            bound_ms=fwd_bytes / rate * 1e3,
+            bwd_ms=time_ms(torch, lambda: rn_ops.rms_norm_bwd(x, w, rstd, dy)),
+            bwd_burst_ms=time_burst(
+                torch, lambda: rn_ops.rms_norm_bwd(x, w, rstd, dy), n=50),
+            bwd_plain_ms=time_ms(
+                torch, lambda: rn_ref.rms_norm_bwd_ref(x, w, dy), reps=10),
+            bwd_bound_ms=bwd_bytes / rate * 1e3)
+        # device time alone (at the training shape a call's dispatch
+        # outlasts its kernel, so the burst is the host's rate there)
+        r["device_ms"], ops_fwd, _ = profiled_ms(
+            torch, lambda: rn_ops.rms_norm(x, w))
+        r["bwd_device_ms"], ops_bwd, _ = profiled_ms(
+            torch, lambda: rn_ops.rms_norm_bwd(x, w, rstd, dy))
+        check(ops_fwd == 1 and ops_bwd == 2,
+              f"RMSNorm device operations a call: {ops_fwd}, {ops_bwd}")
+        print(f"  rms_norm {label}: {rows:,d} x {d} bf16, {groups} "
+              f"weight(s): forward kernel {r['ms']:.4f} ms, burst "
+              f"{r['burst_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({fwd_bytes:,d} B); backward kernel "
+              f"{r['bwd_ms']:.4f} ms, burst {r['bwd_burst_ms']:.4f} ms, plain "
+              f"{r['bwd_plain_ms']:.4f} ms, bound {r['bwd_bound_ms']:.4f} ms "
+              f"({bwd_bytes:,d} B); profiled device ms forward "
+              f"{fmt_ms(r['device_ms'])}, backward "
+              f"{fmt_ms(r['bwd_device_ms'])}; y within {ulps} bf16 ulp, dx "
+              f"{dx_err:.3g}, dw {dw_err:.3g} of the largest; ptxas of the "
+              f"{nv}-vector instances (registers, spill stores, spill loads) "
+              f"{ptxas}")
+        records[label] = r
+        del x, dy, w, y, rstd, dx, dw, again
+        torch.cuda.empty_cache()
+    print("  ptxas (registers, spill stores, spill loads): " + "; ".join(
+        f"{k} {v}" for k, v in usage.items()))
+    return records
+
+
 def to_cpu(tree):
     if isinstance(tree, dict):
         return {k: to_cpu(v) for k, v in tree.items()}
     return tree.cpu()
 
 
-def lm_phase(torch, np, fa_ops, ss_ops, serve, get_arch, Model):
-    """The Hymba-1.5B serving path at full width; returns the prefill's K5
-    and K6 launch counts and its time."""
+def lm_phase(torch, np, fa_ops, ss_ops, rn_ops, serve, get_arch, Model):
+    """The Hymba-1.5B serving path at full width; returns the prefill's K5,
+    K6 and RMSNorm launch counts and its time."""
     cfg = get_arch("hymba-1.5b").model
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (HYMBA_B, HYMBA_S))).cuda()
@@ -924,12 +1038,14 @@ def lm_phase(torch, np, fa_ops, ss_ops, serve, get_arch, Model):
         torch.cuda.reset_peak_memory_stats()
         fa_ops.reset_launches()
         ss_ops.reset_launches()
+        rn_ops.reset_launches()
         t = time.perf_counter()
         logits = model.prefill_logits(params, batch)
         torch.cuda.synchronize()
         prefill_s = [time.perf_counter() - t]
         counts = {"flash_attention": fa_ops.flash_attention.launches,
-                  "selective_scan": ss_ops.selective_scan.launches}
+                  "selective_scan": ss_ops.selective_scan.launches,
+                  "rms_norm": rn_ops.rms_norm.launches}
         peak = torch.cuda.max_memory_allocated()
         for _ in range(2):
             t = time.perf_counter()
@@ -937,7 +1053,8 @@ def lm_phase(torch, np, fa_ops, ss_ops, serve, get_arch, Model):
             torch.cuda.synchronize()
             prefill_s.append(time.perf_counter() - t)
     check(counts == {"flash_attention": cfg.num_layers,
-                     "selective_scan": cfg.num_layers},
+                     "selective_scan": cfg.num_layers,
+                     "rms_norm": norm_launches(cfg)[0]},
           f"prefill launches {counts}")
     check(tuple(logits.shape) == (HYMBA_B, 1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), "prefill logits")
@@ -1117,7 +1234,7 @@ def slice_c_phase(torch, np, kernel_ops, dataset, init, device: str):
     )
     from repro_torch.models import lenet_loss
 
-    ops, rc_ops, fa_ops, ss_ops = kernel_ops
+    ops, rc_ops, fa_ops, ss_ops, rn_ops = kernel_ops
 
     def reset_launches():
         for module in kernel_ops:
@@ -1583,7 +1700,7 @@ def slice_d_phase(torch, np, kernel_ops, dataset, init, device: str):
     )
     from repro_torch.utils import threefry
 
-    ops, rc_ops, fa_ops, ss_ops = kernel_ops
+    ops, rc_ops, fa_ops, ss_ops, rn_ops = kernel_ops
     out = {}
 
     def launches():
@@ -2546,11 +2663,11 @@ def slice_f2_phase(torch, np, kernel_ops, fa_ref, serve, get_arch, Model,
     from repro_torch.models import moe
     from repro_torch.models.layers import Init, apply_mlp, apply_norm
 
-    ops, rc_ops, fa_ops, ss_ops = kernel_ops
+    ops, rc_ops, fa_ops, ss_ops, rn_ops = kernel_ops
     out = {}
 
     def reset():
-        for o in (ops, rc_ops, fa_ops, ss_ops):
+        for o in kernel_ops:
             o.reset_launches()
 
     def launches():
@@ -2559,7 +2676,8 @@ def slice_f2_phase(torch, np, kernel_ops, fa_ref, serve, get_arch, Model,
                 "weighted_sum": ops.weighted_sum.launches,
                 "int8_sq_dists": rc_ops.int8_sq_dists.launches,
                 "flash_attention": fa_ops.flash_attention.launches,
-                "selective_scan": ss_ops.selective_scan.launches}
+                "selective_scan": ss_ops.selective_scan.launches,
+                "rms_norm": rn_ops.rms_norm.launches}
 
     # (f) K5 at the new shapes, before any model takes the card's memory
     t = time.perf_counter()
@@ -2623,7 +2741,8 @@ def slice_f2_phase(torch, np, kernel_ops, fa_ref, serve, get_arch, Model,
         shares = [float(x) for x in shares]
     check(counts == {"fused_server": 0, "sq_dists": 0, "weighted_sum": 0,
                      "int8_sq_dists": 0, "flash_attention": cfg.num_layers,
-                     "selective_scan": 0},
+                     "selective_scan": 0,
+                     "rms_norm": norm_launches(cfg)[0]},
           f"deepseek prefill launches {counts}")
     check(tuple(logits.shape) == (F2_B, 1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), "deepseek prefill logits")
@@ -3026,7 +3145,7 @@ def scan_bwd_phase(torch, ss_ops, ss_ref, rate: float):
     return records
 
 
-def grads_phase(torch, np, fa_ops, ss_ops, get_arch, Model):
+def grads_phase(torch, np, fa_ops, ss_ops, rn_ops, get_arch, Model):
     """(c) torch.func.grad of Model.loss at Hymba's full width, 2 layers,
     f32: card vs CPU, vmap over clients vs separate calls, ce_chunk and
     remat_block vs the plain run."""
@@ -3053,20 +3172,23 @@ def grads_phase(torch, np, fa_ops, ss_ops, get_arch, Model):
         return (fa_ops.flash_attention.launches,
                 ss_ops.selective_scan.launches,
                 fa_ops.flash_attention_bwd.launches,
-                ss_ops.selective_scan_bwd.launches)
+                ss_ops.selective_scan_bwd.launches,
+                rn_ops.rms_norm.launches, rn_ops.rms_norm_bwd.launches)
 
-    fa_ops.reset_launches()
-    ss_ops.reset_launches()
+    for o in (fa_ops, ss_ops, rn_ops):
+        o.reset_launches()
     g_card = loss_grad(base, "cuda")(params, on_card[0])
     torch.cuda.synchronize()
     n = GRAD_LAYERS
-    check(counts() == (2 * n, 2 * n, n, n), f"grad launches {counts()}")
+    want = (2 * n, 2 * n, n, n) + norm_launches(base, grads=1, forwards=0)
+    check(counts() == want, f"grad launches {counts()}")
     t = time.perf_counter()
     g_cpu = loss_grad(base, "cpu")(to_cpu(params), batches[0])
     err = tree_err(torch, g_card, g_cpu)
     print(f"    grad of Model.loss, {n} layers, S={GRAD_S}, f32: card vs CPU "
           f"{err:.3g} of max |grad| (limit {GRAD_TOL}); K5/K6 forward, "
-          f"backward launches {counts()}; CPU {time.perf_counter() - t:.1f} s")
+          f"backward, RMSNorm forward, backward launches {counts()}; "
+          f"CPU {time.perf_counter() - t:.1f} s")
     check(err <= GRAD_TOL, f"grad card vs CPU {err}")
     del g_cpu
 
@@ -3075,11 +3197,11 @@ def grads_phase(torch, np, fa_ops, ss_ops, get_arch, Model):
     clients = tree_map(lambda p: p[None] + 1e-3 * torch.randn(
         (GRAD_CLIENTS,) + tuple(p.shape), device="cuda", generator=g), params)
     stacked = {k: torch.stack([b[k] for b in on_card]) for k in on_card[0]}
-    fa_ops.reset_launches()
-    ss_ops.reset_launches()
+    for o in (fa_ops, ss_ops, rn_ops):
+        o.reset_launches()
     together = vmap(loss_grad(base, "cuda"))(clients, stacked)
     torch.cuda.synchronize()
-    check(counts() == (2 * n, 2 * n, n, n), f"vmapped launches {counts()}")
+    check(counts() == want, f"vmapped launches {counts()}")
     errs = [tree_err(torch, tree_map(lambda t: t[i], together),
                      loss_grad(base, "cuda")(tree_map(lambda t: t[i], clients),
                                              on_card[i]))
@@ -3107,7 +3229,7 @@ def train_phase(torch, kernel_ops, get_arch, card: str, layers: int):
     from repro_torch.configs.base import FLConfig
     from repro_torch.launch import train
 
-    ops, rc_ops, fa_ops, ss_ops = kernel_ops
+    ops, rc_ops, fa_ops, ss_ops, rn_ops = kernel_ops
 
     def reset():
         for o in kernel_ops:
@@ -3121,7 +3243,9 @@ def train_phase(torch, kernel_ops, get_arch, card: str, layers: int):
                 "flash_attention": fa_ops.flash_attention.launches,
                 "selective_scan": ss_ops.selective_scan.launches,
                 "flash_attention_bwd": fa_ops.flash_attention_bwd.launches,
-                "selective_scan_bwd": ss_ops.selective_scan_bwd.launches}
+                "selective_scan_bwd": ss_ops.selective_scan_bwd.launches,
+                "rms_norm": rn_ops.rms_norm.launches,
+                "rms_norm_bwd": rn_ops.rms_norm_bwd.launches}
 
     fl = FLConfig(buffer_size=TRAIN_K, local_steps=TRAIN_M, local_lr=5e-3,
                   weighting="paper", server_pass_mode="fused")
@@ -3156,12 +3280,14 @@ def train_phase(torch, kernel_ops, get_arch, card: str, layers: int):
           f"{n_params:,d} params; cohort state "
           f"{(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB; init "
           f"{time.perf_counter() - t:.1f} s")
+    norms = norm_launches(loop.model.cfg, grads=TRAIN_M)
     want = {"fused_server": 1, "sq_dists": 0, "weighted_sum": 0,
             "int8_sq_dists": 0,
             "flash_attention": (2 * TRAIN_M + 1) * layers,
             "selective_scan": (2 * TRAIN_M + 1) * layers,
             "flash_attention_bwd": TRAIN_M * layers,
-            "selective_scan_bwd": TRAIN_M * layers}
+            "selective_scan_bwd": TRAIN_M * layers,
+            "rms_norm": norms[0], "rms_norm_bwd": norms[1]}
     times, batch_times, losses = [], [], []
     reset()  # the run's counts: set to 0 here, read after its last round
     before = counts()
@@ -3258,7 +3384,7 @@ def train_phase(torch, kernel_ops, get_arch, card: str, layers: int):
 def slice_f3_phase(torch, np, kernel_ops, fa_ref, ss_ref, get_arch, Model,
                    rate: float, card: str):
     """Slice F3: LM training on the card."""
-    _, _, fa_ops, ss_ops = kernel_ops
+    _, _, fa_ops, ss_ops, rn_ops = kernel_ops
     out = {}
     t = time.perf_counter()
     print("  (a) K5's backward (median of 10 calls; burst of 20):")
@@ -3268,7 +3394,7 @@ def slice_f3_phase(torch, np, kernel_ops, fa_ref, ss_ref, get_arch, Model,
     print(f"  (a), (b): {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     print("  (c) gradients of Model.loss:")
-    grads_phase(torch, np, fa_ops, ss_ops, get_arch, Model)
+    grads_phase(torch, np, fa_ops, ss_ops, rn_ops, get_arch, Model)
     print(f"  (c): {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     print("  (d) the training run:")
@@ -3503,7 +3629,7 @@ def f4_train_run(torch, kernel_ops, cfg, cohort: int, seq: int, card: str,
     from repro_torch.launch import train
     from repro_torch.models import moe
 
-    ops, rc_ops, fa_ops, ss_ops = kernel_ops
+    ops, rc_ops, fa_ops, ss_ops, rn_ops = kernel_ops
     fl = FLConfig(buffer_size=max(1, cohort - 1), local_steps=F4_M,
                   local_lr=5e-3, weighting="paper", server_pass_mode="fused")
     torch.cuda.synchronize()
@@ -3518,10 +3644,12 @@ def f4_train_run(torch, kernel_ops, cfg, cohort: int, seq: int, card: str,
     init_s = time.perf_counter() - t
     state_gib = (torch.cuda.memory_allocated() - base) / 2**30
     layers = cfg.num_layers
+    norms = norm_launches(cfg, grads=F4_M)
     want = {"fused_server": 1, "sq_dists": 0, "weighted_sum": 0,
             "int8_sq_dists": 0, "flash_attention": (2 * F4_M + 1) * layers,
             "selective_scan": 0, "flash_attention_bwd": F4_M * layers,
-            "selective_scan_bwd": 0}
+            "selective_scan_bwd": 0, "rms_norm": norms[0],
+            "rms_norm_bwd": norms[1]}
 
     def counts():
         return {"fused_server": ops.server_update.launches,
@@ -3531,7 +3659,9 @@ def f4_train_run(torch, kernel_ops, cfg, cohort: int, seq: int, card: str,
                 "flash_attention": fa_ops.flash_attention.launches,
                 "selective_scan": ss_ops.selective_scan.launches,
                 "flash_attention_bwd": fa_ops.flash_attention_bwd.launches,
-                "selective_scan_bwd": ss_ops.selective_scan_bwd.launches}
+                "selective_scan_bwd": ss_ops.selective_scan_bwd.launches,
+                "rms_norm": rn_ops.rms_norm.launches,
+                "rms_norm_bwd": rn_ops.rms_norm_bwd.launches}
 
     for o in kernel_ops:
         o.reset_launches()
@@ -3702,7 +3832,7 @@ def slice_f4_phase(torch, np, kernel_ops, fa_ref, get_arch, smoke_variant,
     encoder-decoder, the patch and the D 160 / 256 archs, their training
     runs, the Hymba run's memory against its peak before the memory
     repair, the launcher."""
-    _, _, fa_ops, _ = kernel_ops
+    _, _, fa_ops, _, _ = kernel_ops
     out = {}
     t = time.perf_counter()
     print("  (a) K5's backward at D 160 and 256 (median of 10 calls; burst "
@@ -3813,7 +3943,7 @@ def slice_g_phase(torch, np, kernel_ops, fa_ref, get_arch, Model,
     from repro_torch.launch.mesh import ShapeMesh
     from repro_torch.launch.program import DRYRUN_FL, build_program
 
-    ops, rc_ops, fa_ops, ss_ops = kernel_ops
+    ops, rc_ops, fa_ops, ss_ops, rn_ops = kernel_ops
     mesh = ShapeMesh((1, 1), ("data", "model"))
 
     def reset():
@@ -3828,7 +3958,9 @@ def slice_g_phase(torch, np, kernel_ops, fa_ref, get_arch, Model,
                 "flash_attention": fa_ops.flash_attention.launches,
                 "selective_scan": ss_ops.selective_scan.launches,
                 "flash_attention_bwd": fa_ops.flash_attention_bwd.launches,
-                "selective_scan_bwd": ss_ops.selective_scan_bwd.launches}
+                "selective_scan_bwd": ss_ops.selective_scan_bwd.launches,
+                "rms_norm": rn_ops.rms_norm.launches,
+                "rms_norm_bwd": rn_ops.rms_norm_bwd.launches}
 
     def only(**want):
         return {k: want.get(k, 0) for k in counts()}
@@ -3861,7 +3993,8 @@ def slice_g_phase(torch, np, kernel_ops, fa_ref, get_arch, Model,
         got = counts()
         peak = torch.cuda.max_memory_allocated()
         direct = model.prefill_logits(params, batch)
-    want = only(flash_attention=cfg.num_layers, selective_scan=cfg.num_layers)
+    want = only(flash_attention=cfg.num_layers, selective_scan=cfg.num_layers,
+                rms_norm=norm_launches(cfg)[0])
     check(got == want, f"(a) prefill launches {got}, want {want}")
     check(tuple(logits.shape) == (shape.global_batch, 1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), "(a) prefill logits")
@@ -3922,7 +4055,9 @@ def slice_g_phase(torch, np, kernel_ops, fa_ref, get_arch, Model,
     check(all(got[k] == 0 for k in ("fused_server", "sq_dists",
                                     "weighted_sum", "int8_sq_dists",
                                     "flash_attention_bwd",
-                                    "selective_scan_bwd")),
+                                    "selective_scan_bwd", "rms_norm_bwd"))
+          and got["rms_norm"] == norm_launches(
+              cfg, forwards=G_DECODE_TOKENS)[0],
           f"(b) decode launches {got}")
     out["launches"]["decode"] = got
     out["decode"] = dict(seconds=decode_s,
@@ -3951,10 +4086,12 @@ def slice_g_phase(torch, np, kernel_ops, fa_ref, get_arch, Model,
     state = init_cohort_state(params, 1)
     del params
     m = DRYRUN_FL.local_steps
+    norms = norm_launches(cfg, grads=m)
     want = only(fused_server=1, flash_attention=(2 * m + 1) * layers,
                 selective_scan=(2 * m + 1) * layers,
                 flash_attention_bwd=m * layers,
-                selective_scan_bwd=m * layers)
+                selective_scan_bwd=m * layers, rms_norm=norms[0],
+                rms_norm_bwd=norms[1])
     rng = np.random.default_rng(2)
     times, losses = [], []
     torch.cuda.synchronize()
@@ -4029,8 +4166,10 @@ def slice_g_phase(torch, np, kernel_ops, fa_ref, get_arch, Model,
                 "tau": np.int32(tau), "data_size": np.float32(size)}
                for tau, size in ((0, 900.0), (1, 1300.0))]
     m = fl.local_steps
+    norms = norm_launches(cfg, grads=m)
     want = only(flash_attention=(2 * m + 1) * layers,
-                flash_attention_bwd=m * layers)
+                flash_attention_bwd=m * layers, rms_norm=norms[0],
+                rms_norm_bwd=norms[1])
 
     def dist_run():
         state = init_dist_state(params, fl)
@@ -4161,6 +4300,9 @@ def main() -> int:
     from repro_torch.kernels.ring_codec import kernel as rc_kernel
     from repro_torch.kernels.ring_codec import ops as rc_ops
     from repro_torch.kernels.ring_codec import ref as rc_ref
+    from repro_torch.kernels.rms_norm import kernel as rn_kernel
+    from repro_torch.kernels.rms_norm import ops as rn_ops
+    from repro_torch.kernels.rms_norm import ref as rn_ref
     from repro_torch.kernels.ssm_scan import kernel as ss_kernel
     from repro_torch.kernels.ssm_scan import ops as ss_ops
     from repro_torch.kernels.ssm_scan import ref as ss_ref
@@ -4175,6 +4317,7 @@ def main() -> int:
         init_version_ring,
     )
     from repro_torch.sim.population import collect_windows
+    kernel_ops = (ops, rc_ops, fa_ops, ss_ops, rn_ops)
 
     # 1. device line
     line = card = device_line()
@@ -4192,7 +4335,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libraries = (kernel.LIBRARY, rc_kernel.LIBRARY, fa_kernel.LIBRARY,
                  ss_kernel.LIBRARY, fa_kernel.BWD_LIBRARY,
-                 ss_kernel.BWD_LIBRARY)
+                 ss_kernel.BWD_LIBRARY, rn_kernel.LIBRARY)
     with ThreadPoolExecutor(len(libraries)) as pool:
         built = list(pool.map(lambda lib: lib.build(), libraries))
     for lib in libraries:
@@ -4206,7 +4349,8 @@ def main() -> int:
                       (fa_kernel.LIBRARY, "flash_fwd"),
                       (ss_kernel.LIBRARY, "selective_scan_kernel"),
                       (fa_kernel.BWD_LIBRARY, "fa_bwd"),
-                      (ss_kernel.BWD_LIBRARY, "ss_bwd")):
+                      (ss_kernel.BWD_LIBRARY, "ss_bwd"),
+                      (rn_kernel.LIBRARY, "rms_")):
         for line in ptxas_lines(lib.ptxas_info, part):
             print(f"  {line}")
     optin = getattr(torch.cuda.get_device_properties(0),
@@ -4490,7 +4634,7 @@ def main() -> int:
     # 6b. Slice C: the cohort step, the dist step, aggregate_fused and the
     # serving loop (in process, over tcp with a journal replay, http twin)
     t = time.perf_counter()
-    slice_c = slice_c_phase(torch, np, (ops, rc_ops, fa_ops, ss_ops),
+    slice_c = slice_c_phase(torch, np, kernel_ops,
                             dataset, init, "cuda")
     rates = slice_c["rates"]
     print(f"  Slice C numbers ({card}): cohort rounds/s fused "
@@ -4506,7 +4650,7 @@ def main() -> int:
     # 6c. Slice D: the population engine (draws, windows, scale, training
     # at N = 30 and N = 1e6 with a bit-identical resume)
     t = time.perf_counter()
-    slice_d = slice_d_phase(torch, np, (ops, rc_ops, fa_ops, ss_ops),
+    slice_d = slice_d_phase(torch, np, kernel_ops,
                             dataset, init, "cuda")
     scale = ", ".join(f"N={r['n']:,} {r['events_per_s']:,.0f} events/s "
                       f"{r['host_reads_per_window']:.2f} reads/window "
@@ -4552,13 +4696,14 @@ def main() -> int:
     print("K5 / K6 phases (median of 10 kernel calls, CUDA events):")
     attn_records = flash_kernel_phase(torch, fa_ops, fa_ref, rate)
     scan_records = scan_kernel_phase(torch, ss_ops, ss_ref, rate)
+    norm_records = norm_kernel_phase(torch, rn_kernel, rn_ops, rn_ref, rate)
     print(f"  phase: {time.perf_counter() - t:.1f} s")
 
     # 8. LM serving path, Hymba-1.5B at full width
     t = time.perf_counter()
     print("LM serving path: Hymba-1.5B")
     lm_counts, prefill_s, profile = lm_phase(torch, np, fa_ops, ss_ops,
-                                             serve, get_arch, Model)
+                                             rn_ops, serve, get_arch, Model)
     k5 = attn_records[ATTN_CASES[0]]
     k6 = scan_records[SCAN_SEQS[0]]
     layers = lm_counts["flash_attention"]
@@ -4582,7 +4727,7 @@ def main() -> int:
     t = time.perf_counter()
     print(f"Slice F2 ({card}): deepseek-moe-16b, arctic-480b, whisper-tiny, "
           f"pixtral-12b, stablelm-12b, gemma-7b, qwen1.5-110b")
-    f2 = slice_f2_phase(torch, np, (ops, rc_ops, fa_ops, ss_ops), fa_ref,
+    f2 = slice_f2_phase(torch, np, kernel_ops, fa_ref,
                         serve, get_arch, Model, rate, card)
     ds = f2["deepseek"]
     print(f"  Slice F2 numbers ({card}): deepseek-moe-16b prefill "
@@ -4598,7 +4743,7 @@ def main() -> int:
     t = time.perf_counter()
     print(f"Slice F3 ({card}): K5 and K6 backward, Model.loss gradients, "
           f"Hymba-1.5B training")
-    f3 = slice_f3_phase(torch, np, (ops, rc_ops, fa_ops, ss_ops), fa_ref,
+    f3 = slice_f3_phase(torch, np, kernel_ops, fa_ref,
                         ss_ref, get_arch, Model, rate, card)
     tr = f3["train"]
     print(f"  Slice F3 numbers ({card}): Hymba-1.5B at full width, "
@@ -4613,7 +4758,7 @@ def main() -> int:
     print(f"Slice F4 ({card}): K5's backward at D 160 / 256, gradients and "
           f"training of deepseek-moe-16b, whisper-tiny, pixtral-12b, "
           f"stablelm-12b, gemma-7b")
-    f4 = slice_f4_phase(torch, np, (ops, rc_ops, fa_ops, ss_ops), fa_ref,
+    f4 = slice_f4_phase(torch, np, kernel_ops, fa_ref,
                         get_arch, smoke_variant, Model, rate, card, tr)
     print(f"  Slice F4 numbers ({card}): "
           + "; ".join(f"{r['label']} {r['layers']} layers C={r['cohort']}: "
@@ -4629,7 +4774,7 @@ def main() -> int:
     print(f"Slice G ({card}): the Program builders at full width, bf16, on a "
           f"1 x 1 mesh: prefill, decode, cohort train, dist train; the dry "
           f"run")
-    g = slice_g_phase(torch, np, (ops, rc_ops, fa_ops, ss_ops), fa_ref,
+    g = slice_g_phase(torch, np, kernel_ops, fa_ref,
                       get_arch, Model, rate, card)
     print(f"  Slice G numbers ({card}): prefill "
           f"{g['prefill']['tokens_per_s']:,.0f} tokens/s, peak "
@@ -4709,6 +4854,16 @@ def main() -> int:
             kernels[-1]["g_shape"] = g["attn_bwd"]
             kernels[-1]["slice_f4_launches"] = {
                 k: rr["counts"][name_k] for k, rr in f4["train"].items()}
+    kernels.append({
+        "name": "rms_norm", "route": "cuda",
+        "source": "src/repro_torch/csrc/rms_norm.cu", "replaces": None,
+        "records": norm_records,
+        "prefill_launches": lm_counts["rms_norm"],
+        "slice_f3_launches": {k: tr["counts"][k]
+                              for k in ("rms_norm", "rms_norm_bwd")},
+        "slice_g_launches": {k: {n: c[n] for n in ("rms_norm", "rms_norm_bwd")
+                                 if n in c}
+                             for k, c in g["launches"].items()}})
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

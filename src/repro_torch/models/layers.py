@@ -19,6 +19,8 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.rms_norm.ops import rms_norm as rms_norm_fn
+
 Params = Dict[str, object]
 
 
@@ -99,10 +101,9 @@ def embed_init(init: Init, vocab: int, dim: int,
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * (1.0 + weight.float())).to(x.dtype)
+    """The RMSNorm kernel on CUDA tensors, the eager chain on CPU tensors
+    (``kernels/rms_norm``), differentiable and vmappable either way."""
+    return rms_norm_fn(x, weight, eps)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

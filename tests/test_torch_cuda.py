@@ -46,7 +46,11 @@ an lse 1e-4 off moves p by 1e-4 relative, far inside the bf16 tolerance); K6
 rtol 1e-4 / atol 1e-5 times the largest of its five gradients; both
 bit-identical across two launches. ``torch.func.grad`` of ``Model.loss`` (Hymba smoke, f32) on
 the card, vmapped over 3 clients, against the CPU: atol 1e-4 times the
-largest gradient (cuBLAS vs CPU matmuls). A tracer span with device
+largest gradient (cuBLAS vs CPU matmuls). The RMSNorm kernels against the
+plain chain on the same card inputs: y within 1 bf16 ulp (f32: rtol 1e-5),
+rstd rtol 1e-5 (only the row sum's order differs); dx within 1 bf16 ulp
+of the largest |dx| (f32: 1e-5 of it), dw rtol 1e-4 (rows summed in
+tiles); bit-identical over two launches. A tracer span with device
 edges around a K1 launch: positive elapsed time covering the kernel's, and
 host edges holding the kernel on the profiler's clock.
 """
@@ -1303,3 +1307,138 @@ def test_model_loss_grad_on_card_matches_cpu(cuda):
     scale = max(float(w.abs().max()) for w in tree_leaves(want))
     for a, b in zip(tree_leaves(got), tree_leaves(want)):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4 * scale)
+
+
+# ------------------------------------------------------------------- RMSNorm
+
+RN_DIMS = (64, 1600, 2048, 5120, 1001)  # 1001: no 16-byte vectors
+
+
+def _rn_case(rows_shape, d, dtype, weight, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = (3.0 * torch.randn(rows_shape + (d,), generator=g)).to(dtype)
+    dy = torch.randn(rows_shape + (d,), generator=g).to(dtype)
+    groups = rows_shape[0] if weight == "per_call" else 0
+    w = 0.1 * torch.randn((groups, d) if groups else (d,), generator=g)
+    return x, w, dy
+
+
+def _within_one_bf16_ulp(got, want):
+    """Each bf16 of ``got`` is ``want``'s or its neighbour (same sign)."""
+    a = got.view(torch.int16).int()
+    b = want.view(torch.int16).int()
+    assert bool(((a - b).abs() <= 1).all()), \
+        f"{int(((a - b).abs() > 1).sum())} outputs off by more than 1 ulp"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", RN_DIMS)
+@pytest.mark.parametrize("weight", ["shared", "per_call"])
+def test_rms_norm_kernel_matches_plain(cuda, dtype, d, weight):
+    """The forward and backward kernels against the plain chain on the same
+    card inputs: y within 1 bf16 ulp (f32: rtol 1e-5; only the row sum's
+    order differs), rstd rtol 1e-5; dx within 1 bf16 ulp of the largest
+    |dx| (f32: 1e-5 of it; the kernel's dx formula rounds in other places
+    than the vjp of the chain), dw rtol 1e-4 / 1e-5 of the largest (rows
+    summed in tiles); both bit-identical over two launches."""
+    from repro_torch.kernels.rms_norm import ops as rn_ops
+    from repro_torch.kernels.rms_norm import ref as rn_ref
+
+    x, w, dy = (t.to(cuda) for t in _rn_case((3, 37), d, dtype, weight, d))
+    rn_ops.reset_launches()
+    y, rstd = rn_ops.rms_norm_rstd(x, w)
+    dx, dw = rn_ops.rms_norm_bwd(x, w, rstd, dy)
+    torch.cuda.synchronize()
+    assert (rn_ops.rms_norm.launches, rn_ops.rms_norm_bwd.launches) == (1, 1)
+    want_y, want_rstd = rn_ref.rms_norm_ref(x, w)
+    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
+    if dtype == torch.bfloat16:
+        _within_one_bf16_ulp(y, want_y)
+    else:
+        torch.testing.assert_close(y, want_y, rtol=1e-5, atol=1e-6)
+    want_dx, want_dw = rn_ref.rms_norm_bwd_ref(x, w, dy)
+    assert dx.dtype == dtype and dw.shape == w.shape and \
+        dw.dtype == torch.float32
+    ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(dx.float(), want_dx.float(), rtol=0,
+                               atol=ulp * float(want_dx.float().abs().max()))
+    torch.testing.assert_close(dw, want_dw, rtol=1e-4,
+                               atol=1e-5 * float(want_dw.abs().max()))
+    again = rn_ops.rms_norm_rstd(x, w) + rn_ops.rms_norm_bwd(x, w, rstd, dy)
+    assert all(torch.equal(a, b) for a, b in zip((y, rstd, dx, dw), again))
+
+
+@pytest.mark.cuda
+def test_rms_norm_kernel_strided_rows_and_vmap(cuda):
+    """The prefill's last position (rows with a stride) and a vmapped call
+    with per-call weights, once contiguous and once a layer's slice of
+    stacked weights (rows at a stride): one launch each, equal to the plain
+    chain on the same rows."""
+    from torch.func import vmap
+
+    from repro_torch.kernels.rms_norm import ops as rn_ops
+    from repro_torch.kernels.rms_norm import ref as rn_ref
+
+    x, w, _ = (t.to(cuda) for t in _rn_case((4, 300), 1600, torch.bfloat16,
+                                           "shared", 7))
+    last = x.view(2, 2, 300, 1600)[:, :, -1:]
+    rn_ops.reset_launches()
+    got = rn_ops.rms_norm(last, w)
+    stacked = 0.1 * torch.randn((2, 3, 1600), device=cuda)
+    for ws in (stacked[:, 1].contiguous(), stacked[:, 1]):
+        folded = vmap(rn_ops.rms_norm)(x.view(2, 2, 300, 1600), ws)
+        for i in range(2):
+            _within_one_bf16_ulp(folded[i], rn_ref.rms_norm_ref(
+                x.view(2, 2, 300, 1600)[i], ws[i])[0])
+    torch.cuda.synchronize()
+    assert rn_ops.rms_norm.launches == 3
+    _within_one_bf16_ulp(got, rn_ref.rms_norm_ref(last.contiguous(), w)[0])
+
+
+@pytest.mark.cuda
+def test_rms_norm_launches_in_prefill_and_vmapped_grad(cuda, monkeypatch):
+    """A Hymba-shaped prefill of L layers launches the forward kernel 4 L
+    + 1 times (norm1, fuse_norm_a, fuse_norm_s, norm2; the last position's
+    final norm); vmap(grad(Model.loss)) over 3 clients launches each kernel
+    once per norm call, as often as one client's grad calls the plain
+    versions on the CPU."""
+    from torch.func import grad, vmap
+
+    from repro_torch.configs import smoke_variant
+    from repro_torch.kernels.rms_norm import ops as rn_ops
+    from repro_torch.kernels.rms_norm import ref as rn_ref
+    from repro_torch.utils.tree import tree_map, tree_to_device
+
+    cfg = smoke_variant(get_arch("hymba-1.5b").model).replace(
+        param_dtype="bfloat16", compute_dtype="bfloat16")
+    card = Model(cfg, device=cuda)
+    params = card.init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (3, 2, 49),
+                         generator=torch.Generator().manual_seed(1))
+    rn_ops.reset_launches()
+    with torch.no_grad():
+        card.prefill_logits(params, {"tokens": toks[0, :, :48].to(cuda)})
+    torch.cuda.synchronize()
+    assert (rn_ops.rms_norm.launches, rn_ops.rms_norm_bwd.launches) == \
+        (4 * cfg.num_layers + 1, 0)
+
+    calls = {"rms_norm_ref": 0, "rms_norm_bwd_ref": 0}
+    for name in calls:
+        def counted(*a, _fn=getattr(rn_ref, name), _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(rn_ref, name, counted)
+    cpu_params = tree_map(lambda p: p.cpu(), params)
+    batch = {"tokens": toks[..., :48], "labels": toks[..., 1:]}
+    one = {k: v[0] for k, v in batch.items()}
+    cpu_model = Model(cfg, device="cpu")
+    grad(lambda p: cpu_model.loss(p, one)[0])(cpu_params)
+    rn_ops.reset_launches()
+    clients = tree_map(lambda p: torch.stack([p] * 3), params)
+    vmap(grad(lambda p, b: card.loss(p, b)[0]))(clients,
+                                               tree_to_device(batch, cuda))
+    torch.cuda.synchronize()
+    assert (rn_ops.rms_norm.launches, rn_ops.rms_norm_bwd.launches) == \
+        (calls["rms_norm_ref"], calls["rms_norm_bwd_ref"])
+    assert calls["rms_norm_ref"] > 4 * cfg.num_layers + 1
