@@ -138,7 +138,9 @@ Phases, in order; any failure raises and exits non-zero:
    (B=2, S=4096, 25 query and 5 kv heads, D=64) in bf16 and f32, window
    1024 and 0 (causal), a ragged S (3001) and an S shorter than the window
    (700); K6 (selective scan) at Hymba's widths (B=2, S=4096, di=3200,
-   N=16) and a ragged S (1001). Each timed beside its bound and its plain
+   N=16), a ragged S (1001) and the Jamba2-Mini prefill cell's shape (B=2,
+   S=65,536, di=8,192: 2^30 elements, every channel against the plain
+   scan). Each timed beside its bound and its plain
    version; K5 also beside ``scaled_dot_product_attention`` (enable_gqa, a
    boolean band mask), the port never calls it. K5's bf16 instance runs on
    the tensor cores (wgmma fed by TMA), its f32 instance on the CUDA cores;
@@ -150,7 +152,10 @@ Phases, in order; any failure raises and exits non-zero:
    rows (2 x 32,768 x 1,600, bf16, one weight), the Hymba training cell's
    (4 slots x 2,048 x 1,600, bf16, a weight a slot) and the DeepSeekMoE
    training cell's (2 slots x 2,048 x 2,048, a weight a slot: the 8-vector
-   instances), bit-identical over two launches, timed per call and as a
+   instances) and the Jamba2-Mini prefill cell's (2 x 65,536 rows: d 4,096
+   bf16 on the block kernels; the f32 dt and C norms, d 256 and 16, read at
+   the 288-float row stride of their ``x_proj`` output), bit-identical over
+   two launches, timed per call and as a
    burst beside their bytes bound and the plain chain; ptxas's registers
    and spills of each instance, and of the instances each case runs.
 8. LM serving path, Hymba-1.5B at full width: ``Model.prefill_logits`` at
@@ -164,6 +169,13 @@ Phases, in order; any failure raises and exits non-zero:
    against the full forward at 4 layers, f32, S=1536 (the 1024-slot ring
    cache wraps); ``launch/serve.py`` at full depth (batch 4, prompt 32,
    gen 16).
+8a. Jamba2-Mini's layered stack at the prefill cell's configuration (16
+   layers, 8 of 16 experts held, bf16, B=2, S=65,536): one warm
+   ``prefill_logits`` with the counters zeroed launches K5 once a NoPE
+   attention layer (2), K6 once a Mamba layer (14) and the RMSNorm forward
+   2 x 16 + 3 x 14 + 1 times, routes 2 x 131,072 pairs (``moe.pairs_held``
+   + ``moe.pairs_absent``) in each of its 8 MoE layers, and gives finite
+   logits; its time and peak memory are printed.
 9. Slice F2, the serving path of the other archs (bf16 unless named):
    (f) K5 at the seven archs' prefill shapes (deepseek-moe-16b D=128,
    stablelm-12b D=160, gemma-7b D=256, pixtral-12b S=4352, qwen1.5-110b
@@ -345,13 +357,28 @@ HYMBA_DI, HYMBA_N = 3200, 16
 ATTN_CASES = ((4096, 1024, "bfloat16"), (4096, 1024, "float32"),
               (4096, 0, "bfloat16"), (4096, 0, "float32"),
               (3001, 1024, "bfloat16"), (700, 1024, "float32"))
-SCAN_SEQS = (4096, 1001)  # the first is the prefill's
-# RMSNorm rows (label, rows, weight groups, d), bf16: the Hymba prefill
-# cell's B 2 x S 32,768 with one weight, the Hymba training cell's C 4 slots
-# x b 1 x S 2,048 with a weight a slot (d 1,600: 7 vectors a lane), and the
-# DeepSeekMoE training cell's C 2 slots at d 2,048 (8 vectors a lane)
-NORM_CASES = (("prefill", 2 * 32768, 1, 1600), ("train", 4 * 2048, 4, 1600),
-              ("dsmoe-train", 2 * 2048, 2, 2048))
+# Jamba2-Mini's prefill cell (portbench's jamba2-mini-prefill-b2-s64k):
+# its 16 layers (2 NoPE attention, 14 Mamba-1, 8 MoE) over B 2 x S 65,536
+JAMBA_B, JAMBA_S, JAMBA_DI, JAMBA_LAYERS = 2, 65536, 8192, 16
+JAMBA_DT_RANK, JAMBA_XPROJ = 256, 256 + 2 * 16  # x_proj's output: dt, B, C
+# K6's (B, S, d_inner), N 16: the Hymba prefill's (first), a ragged S, and
+# Jamba's 2^30 elements
+SCAN_CASES = ((HYMBA_B, 4096, HYMBA_DI), (HYMBA_B, 1001, HYMBA_DI),
+              (JAMBA_B, JAMBA_S, JAMBA_DI))
+# RMSNorm rows (label, rows, weight groups, d, dtype, column): the Hymba
+# prefill cell's B 2 x S 32,768 with one weight, the Hymba training cell's C
+# 4 slots x b 1 x S 2,048 with a weight a slot (d 1,600: 7 vectors a lane),
+# the DeepSeekMoE training cell's C 2 slots at d 2,048 (8 vectors a lane),
+# all bf16 and contiguous; the Jamba prefill cell's residual norms (d 4,096:
+# the block kernels) and its f32 dt and C norms, read as the columns from
+# ``column`` of an (rows, 288) ``x_proj`` output
+NORM_CASES = (("prefill", 2 * 32768, 1, 1600, "bfloat16", None),
+              ("train", 4 * 2048, 4, 1600, "bfloat16", None),
+              ("dsmoe-train", 2 * 2048, 2, 2048, "bfloat16", None),
+              ("jamba-prefill", JAMBA_B * JAMBA_S, 1, 4096, "bfloat16", None),
+              ("jamba-dt", JAMBA_B * JAMBA_S, 1, JAMBA_DT_RANK, "float32", 0),
+              ("jamba-c", JAMBA_B * JAMBA_S, 1, 16, "float32",
+               JAMBA_DT_RANK + 16))
 
 SOURCES = {"fused_server": "src/repro_torch/csrc/weighted_agg.cu",
            "sq_dists": "src/repro_torch/csrc/weighted_agg.cu",
@@ -863,10 +890,13 @@ def flash_kernel_phase(torch, fa_ops, fa_ref, rate: float):
 
 
 def scan_kernel_phase(torch, ss_ops, ss_ref, rate: float):
-    """Hold K6 against its plain version; returns per-S records."""
-    b, di, n = HYMBA_B, HYMBA_DI, HYMBA_N
+    """Hold K6 against its plain version at ``SCAN_CASES``; returns
+    per-case records."""
+    n = HYMBA_N
     records = {}
-    for s in SCAN_SEQS:
+    for b, s, di in SCAN_CASES:
+        # the plain scan walks S steps from Python: once at Jamba's S
+        plain_reps = (2, 1) if s <= 4096 else (1, 0)
         g = torch.Generator(device="cuda").manual_seed(s)
         x = torch.randn(b, s, di, device="cuda", generator=g)
         dt = torch.nn.functional.softplus(
@@ -877,12 +907,13 @@ def scan_kernel_phase(torch, ss_ops, ss_ref, rate: float):
         args = (x, dt, bb, c, a)
         y = ss_ops.selective_scan(*args)
         check(torch.equal(y, ss_ops.selective_scan(*args)),
-              f"K6 not bit-identical at S={s}")
+              f"K6 not bit-identical at B={b} S={s} di={di}")
         want = ss_ref.selective_scan_ref(*args)
         err = float((y - want).abs().max())
         check(torch.allclose(y, want, rtol=SCAN_RTOL,
                              atol=SCAN_ATOL_REL * float(want.abs().max())),
-              f"K6 vs plain at S={s}: max abs err {err}")
+              f"K6 vs plain at B={b} S={s} di={di}: max abs err {err}")
+        del want
         nbytes = (3 * b * s * di + 2 * b * s * n + di * n) * 4
         flops = 6 * b * s * di * n
         bytes_ms = nbytes / rate * 1e3
@@ -891,7 +922,7 @@ def scan_kernel_phase(torch, ss_ops, ss_ref, rate: float):
             ms=time_ms(torch, lambda: ss_ops.selective_scan(*args), reps=10,
                        warmup=2),
             plain_ms=time_ms(torch, lambda: ss_ref.selective_scan_ref(*args),
-                             reps=2, warmup=1),
+                             reps=plain_reps[0], warmup=plain_reps[1]),
             library_ms=None, max_abs_err=err, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             burst_ms=time_burst(torch, lambda: ss_ops.selective_scan(*args),
@@ -903,8 +934,8 @@ def scan_kernel_phase(torch, ss_ops, ss_ref, rate: float):
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes:,d} B, "
               f"{flops / 1e9:.2f} GFLOP)  max_abs_err {err:.3g}")
         print(f"    burst of 10: kernel {r['burst_ms']:.4f} ms")
-        records[s] = r
-        del x, dt, bb, c, a, y, want
+        records[(b, s, di)] = r
+        del x, dt, bb, c, a, y
         torch.cuda.empty_cache()
     return records
 
@@ -930,12 +961,18 @@ def norm_kernel_phase(torch, rn_kernel, rn_ops, rn_ref, rate: float):
     # also prints those of the bf16 "rows" instances it runs
     usage = ptxas_usage(rn_kernel.LIBRARY.ptxas_info, "rms_")
     records = {}
-    for label, rows, groups, d in NORM_CASES:
+    for label, rows, groups, d, dtype_name, column in NORM_CASES:
+        dtype = getattr(torch, dtype_name)
+        bf16 = dtype == torch.bfloat16
+        size = 2 if bf16 else 4
         g = torch.Generator(device="cuda").manual_seed(rows + groups)
-        x = (3 * torch.randn(rows, d, device="cuda", generator=g)).to(
-            torch.bfloat16)
-        dy = torch.randn(rows, d, device="cuda", generator=g).to(
-            torch.bfloat16)
+        if column is None:
+            x = (3 * torch.randn(rows, d, device="cuda", generator=g)).to(
+                dtype)
+        else:  # d columns of an x_proj output, at its row stride
+            x = (3 * torch.randn(rows, JAMBA_XPROJ, device="cuda",
+                                 generator=g)).to(dtype)[:, column:column + d]
+        dy = torch.randn(rows, d, device="cuda", generator=g).to(dtype)
         w = 0.1 * torch.randn((groups, d) if groups > 1 else (d,),
                               device="cuda", generator=g)
         rn_ops.reset_launches()
@@ -949,26 +986,38 @@ def norm_kernel_phase(torch, rn_kernel, rn_ops, rn_ref, rate: float):
         check(all(torch.equal(a, b) for a, b in zip((y, rstd, dx, dw), again)),
               f"RMSNorm not bit-identical ({label})")
         want_y, _ = rn_ref.rms_norm_ref(x, w)
-        ulps = int((y.view(torch.int16).int()
-                    - want_y.view(torch.int16).int()).abs().max())
-        check(ulps <= 1, f"RMSNorm y vs plain ({label}): {ulps} bf16 ulps")
+        if bf16:
+            ulps = int((y.view(torch.int16).int()
+                        - want_y.view(torch.int16).int()).abs().max())
+            check(ulps <= 1,
+                  f"RMSNorm y vs plain ({label}): {ulps} bf16 ulps")
+            y_note = f"y within {ulps} bf16 ulp"
+        else:  # f32: only the row sum's order differs
+            ulps = None
+            y_err = float(((y - want_y).abs()
+                           - 1e-5 * want_y.abs()).max())
+            check(y_err <= 1e-6, f"RMSNorm y vs plain ({label}): {y_err:.3g} "
+                  f"past rtol 1e-5")
+            y_note = f"y within rtol 1e-5 (+{max(y_err, 0.0):.3g})"
         want_dx, want_dw = rn_ref.rms_norm_bwd_ref(x, w, dy)
         dx_err = float((dx.float() - want_dx.float()).abs().max()) / float(
             want_dx.float().abs().max())
         dw_err = float((dw - want_dw).abs().max()) / float(
             want_dw.abs().max())
-        check(dx_err <= 2.0 ** -8 and dw_err <= 1e-4,
+        check(dx_err <= (2.0 ** -8 if bf16 else 1e-5) and dw_err <= 1e-4,
               f"RMSNorm backward vs plain ({label}): dx {dx_err:.3g}, dw "
               f"{dw_err:.3g} of the largest")
         del want_y, want_dx, want_dw
-        fwd_bytes = 2 * rows * d * 2 + groups * d * 4 + rows * 4
-        bwd_bytes = 3 * rows * d * 2 + rows * 4 + 2 * groups * d * 4
-        # the instance of a bf16 row: 8 elements a vector, a warp a row
-        nv = -(-(d // 8) // 32)
+        fwd_bytes = 2 * rows * d * size + groups * d * 4 + rows * 4
+        bwd_bytes = 3 * rows * d * size + rows * 4 + 2 * groups * d * 4
+        # the instance of a bf16 row up to d 2,048: 8 elements a vector, a
+        # warp a row (the other cases' instances are in the list at the end)
+        nv = -(-(d // 8) // 32) if bf16 and d <= 2048 else None
         ptxas = {kind: v for kind in ("fwd", "bwd") for k, v in usage.items()
-                 if f"rms_{kind}_rowsI13__nv_bfloat16Li{nv}E" in k}
+                 if nv and f"rms_{kind}_rowsI13__nv_bfloat16Li{nv}E" in k}
         r = dict(
-            rows=rows, d=d, groups=groups, y_ulps=ulps, dx_err=dx_err,
+            rows=rows, d=d, groups=groups, dtype=dtype_name, column=column,
+            y_ulps=ulps, dx_err=dx_err,
             dw_err=dw_err, vectors_a_lane=nv, ptxas=ptxas,
             ms=time_ms(torch, lambda: rn_ops.rms_norm(x, w)),
             burst_ms=time_burst(torch, lambda: rn_ops.rms_norm(x, w), n=50),
@@ -989,15 +1038,16 @@ def norm_kernel_phase(torch, rn_kernel, rn_ops, rn_ref, rate: float):
             torch, lambda: rn_ops.rms_norm_bwd(x, w, rstd, dy))
         check(ops_fwd == 1 and ops_bwd == 2,
               f"RMSNorm device operations a call: {ops_fwd}, {ops_bwd}")
-        print(f"  rms_norm {label}: {rows:,d} x {d} bf16, {groups} "
-              f"weight(s): forward kernel {r['ms']:.4f} ms, burst "
+        print(f"  rms_norm {label}: {rows:,d} x {d} {dtype_name}"
+              f"{'' if column is None else f' (columns of {JAMBA_XPROJ})'}, "
+              f"{groups} weight(s): forward kernel {r['ms']:.4f} ms, burst "
               f"{r['burst_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({fwd_bytes:,d} B); backward kernel "
               f"{r['bwd_ms']:.4f} ms, burst {r['bwd_burst_ms']:.4f} ms, plain "
               f"{r['bwd_plain_ms']:.4f} ms, bound {r['bwd_bound_ms']:.4f} ms "
               f"({bwd_bytes:,d} B); profiled device ms forward "
               f"{fmt_ms(r['device_ms'])}, backward "
-              f"{fmt_ms(r['bwd_device_ms'])}; y within {ulps} bf16 ulp, dx "
+              f"{fmt_ms(r['bwd_device_ms'])}; {y_note}, dx "
               f"{dx_err:.3g}, dw {dw_err:.3g} of the largest; ptxas of the "
               f"{nv}-vector instances (registers, spill stores, spill loads) "
               f"{ptxas}")
@@ -1007,6 +1057,66 @@ def norm_kernel_phase(torch, rn_kernel, rn_ops, rn_ref, rate: float):
     print("  ptxas (registers, spill stores, spill loads): " + "; ".join(
         f"{k} {v}" for k, v in usage.items()))
     return records
+
+
+def jamba_phase(torch, fa_ops, ss_ops, rn_ops, get_arch):
+    """Jamba2-Mini's layered stack at the prefill cell's configuration: one
+    warm ``prefill_logits`` with the counters zeroed; returns its K5, K6 and
+    RMSNorm launches, its routed pairs, its time and its peak."""
+    from repro_torch.models.model import build_model
+    from repro_torch.obs.metrics import default_registry
+
+    cfg = get_arch("jamba2-mini").model.replace(num_layers=JAMBA_LAYERS,
+                                                 experts_held=8)
+    kinds = cfg.layer_counts()
+    check(kinds == {"attn": 2, "ssm": 14, "mlp": 8, "moe": 8},
+          f"Jamba layer kinds {kinds}")
+    t = time.perf_counter()
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (JAMBA_B, JAMBA_S), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(1))}
+    reg = default_registry()
+    names = ("moe.pairs_held", "moe.pairs_absent")
+    with torch.no_grad():
+        model.prefill_logits(params, batch)  # first call pays the set-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa_ops.reset_launches()
+        ss_ops.reset_launches()
+        rn_ops.reset_launches()
+        before = {k: reg.counter(k).value for k in names}
+        t = time.perf_counter()
+        logits = model.prefill_logits(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        counts = {"flash_attention": fa_ops.flash_attention.launches,
+                  "selective_scan": ss_ops.selective_scan.launches,
+                  "rms_norm": rn_ops.rms_norm.launches}
+        pairs = {k: int(reg.counter(k).value - before[k]) for k in names}
+        peak = torch.cuda.max_memory_allocated()
+    # norm1 and norm2 a layer, dt / B / C a Mamba layer, the final norm
+    want = {"flash_attention": kinds["attn"], "selective_scan": kinds["ssm"],
+            "rms_norm": 2 * cfg.num_layers + 3 * kinds["ssm"] + 1}
+    check(counts == want, f"Jamba prefill launches {counts}, want {want}")
+    routed = cfg.experts_per_token * JAMBA_B * JAMBA_S * kinds["moe"]
+    check(sum(pairs.values()) == routed and min(pairs.values()) > 0,
+          f"Jamba routed pairs {pairs}, want {routed} in all")
+    check(tuple(logits.shape) == (JAMBA_B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "Jamba prefill logits")
+    toks = JAMBA_B * JAMBA_S
+    print(f"  Jamba2-Mini prefill_logits B={JAMBA_B} S={JAMBA_S}, "
+          f"{cfg.num_layers} layers, 8 of 16 experts held, bf16: "
+          f"{prefill_s:.4f} s -> {toks / prefill_s:,.0f} tokens/s; peak "
+          f"device memory {peak / 2**30:.2f} GiB; init {init_s:.2f} s; "
+          f"launches {counts}; routed pairs {pairs}")
+    del model, params, logits, batch
+    torch.cuda.empty_cache()
+    return dict(counts=counts, pairs=pairs, prefill_s=prefill_s,
+                peak_gib=peak / 2**30)
 
 
 def to_cpu(tree):
@@ -4705,7 +4815,7 @@ def main() -> int:
     lm_counts, prefill_s, profile = lm_phase(torch, np, fa_ops, ss_ops,
                                              rn_ops, serve, get_arch, Model)
     k5 = attn_records[ATTN_CASES[0]]
-    k6 = scan_records[SCAN_SEQS[0]]
+    k6 = scan_records[SCAN_CASES[0]]
     layers = lm_counts["flash_attention"]
     print(f"  prefill share: K5 {layers} x {k5['burst_ms']:.4f} ms, K6 {layers} "
           f"x {k6['burst_ms']:.4f} ms (bursts) = "
@@ -4721,6 +4831,12 @@ def main() -> int:
             print(f"  K6 in the profile: {profile['selective_scan_count']} "
                   f"launches, {k6['device_ms']:.4f} ms per launch (burst "
                   f"{k6['burst_ms']:.4f} ms)")
+    print(f"  phase: {time.perf_counter() - t:.1f} s")
+
+    # 8a. Jamba2-Mini's layered stack at its prefill cell's configuration
+    t = time.perf_counter()
+    print("Layered stack: Jamba2-Mini")
+    jamba = jamba_phase(torch, fa_ops, ss_ops, rn_ops, get_arch)
     print(f"  phase: {time.perf_counter() - t:.1f} s")
 
     # 8b. Slice F2: the serving path of the other architectures
@@ -4820,6 +4936,8 @@ def main() -> int:
                                   for k, rr in f4["train"].items()},
             "slice_g_launches": {k: c[name_k]
                                  for k, c in g["launches"].items()}})
+        if name_k in jamba["counts"]:
+            kernels[-1]["jamba_prefill_launches"] = jamba["counts"][name_k]
         if name_k == "flash_attention":
             kernels[-1]["f2_shapes"] = [
                 dict(r, prefill_launches=(ds["counts"][name_k]
@@ -4859,6 +4977,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/rms_norm.cu", "replaces": None,
         "records": norm_records,
         "prefill_launches": lm_counts["rms_norm"],
+        "jamba_prefill_launches": jamba["counts"]["rms_norm"],
         "slice_f3_launches": {k: tr["counts"][k]
                               for k in ("rms_norm", "rms_norm_bwd")},
         "slice_g_launches": {k: {n: c[n] for n in ("rms_norm", "rms_norm_bwd")

@@ -222,4 +222,7 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         kw.update(num_patches=min(cfg.num_patches, 16))
     if cfg.attn_window:
         kw.update(attn_window=min(cfg.attn_window, 32))
+    overrides = getattr(cfg, "smoke_overrides", None)  # a port-only subclass
+    if overrides is not None:
+        kw.update(overrides(kw))
     return cfg.replace(**kw)

@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``get_arch(id)`` / ``list_archs()``.
 
 IDs and their order match the JAX package's registry (``--arch <id>`` in
-the launchers).
+the launchers). ``lenet`` and the port-only ``jamba2-mini`` are known to
+``get_arch`` but not listed.
 """
 from __future__ import annotations
 
@@ -23,9 +24,12 @@ _MODULES: Dict[str, str] = {
     "whisper-tiny": "repro_torch.configs.whisper_tiny",
     # paper's own experiment backbone (not in the assigned pool)
     "lenet": "repro_torch.configs.lenet_fmnist",
+    # port-only (the JAX package has no layered stack)
+    "jamba2-mini": "repro_torch.configs.jamba2_mini",
 }
 
-ASSIGNED_ARCHS: List[str] = [k for k in _MODULES if k != "lenet"]
+ASSIGNED_ARCHS: List[str] = [k for k in _MODULES
+                             if k not in ("lenet", "jamba2-mini")]
 
 
 def get_arch(arch_id: str) -> ArchConfig:

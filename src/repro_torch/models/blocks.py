@@ -11,6 +11,13 @@ returns new ones.
 Families: dense, MoE (with arctic's dense residual FFN), hybrid (attention
 and SSM in parallel, Hymba), SSM-only, and the encoder-decoder's encoder
 layers and cross-attention.
+
+A ``LayeredConfig`` (Jamba) gives each layer its own mixer (Mamba or
+attention) and FFN (MLP or MoE) by its ``schedule``. Its parameters stay
+under ``layers``, grouped by kind, each group stacked on a leading axis of
+that kind's layers: ``norm1`` and ``norm2`` (every layer), ``ssm``,
+``attn``, ``mlp``, ``moe``; its decode cache holds ``attn`` K/V for the
+attention layers and ``ssm`` state for the Mamba layers alone.
 """
 from __future__ import annotations
 
@@ -22,6 +29,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Init, apply_mlp, apply_norm, init_mlp, make_norm_params
+from repro_torch.obs.trace import (
+    SPAN_ATTN_MIXER,
+    SPAN_MOE_FFN,
+    SPAN_SSM_MIXER,
+    active_tracer,
+)
 from repro_torch.utils.remat import remat, remat_scan
 
 Params = Dict[str, Any]
@@ -79,6 +92,12 @@ def init_stack(init: Init, cfg, num_layers: int, cross: bool = False
     copied into its slice, so the init holds the stack and one layer (not
     two copies of the stack); the draws are those of ``init_layer`` layer
     after layer."""
+    return _stack_draws(lambda: init_layer(init, cfg, cross=cross),
+                        num_layers)
+
+
+def _stack_draws(draw, num_layers: int) -> Params:
+    """``draw()``'s tree, drawn ``num_layers`` times into stacked leaves."""
     stacked: Params = {}
 
     def put(dst: Params, src: Params, i: int) -> None:
@@ -92,7 +111,7 @@ def init_stack(init: Init, cfg, num_layers: int, cross: bool = False
                 dst[key][i].copy_(val)
 
     for i in range(num_layers):
-        put(stacked, init_layer(init, cfg, cross=cross), i)
+        put(stacked, draw(), i)
     return stacked
 
 
@@ -225,13 +244,13 @@ def init_stack_cache(cfg, num_layers: int, batch: int, cache_len: int,
                      cross: bool = False) -> Params:
     """Layer-stacked cache (leading axis L), zeros."""
     one = init_layer_cache(cfg, batch, cache_len, dtype, device, cross=cross)
+    return _zeros_stacked(one, num_layers)
 
-    def stack(t):
-        if isinstance(t, dict):
-            return {k: stack(v) for k, v in t.items()}
-        return t.new_zeros((num_layers,) + tuple(t.shape))
 
-    return stack(one)
+def _zeros_stacked(tree: Params, n: int) -> Params:
+    if isinstance(tree, dict):
+        return {k: _zeros_stacked(v, n) for k, v in tree.items()}
+    return tree.new_zeros((n,) + tuple(tree.shape))
 
 
 def decoder_layer_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
@@ -262,4 +281,114 @@ def run_stack_decode(cfg, stacked: Params, x: torch.Tensor, caches: Params,
     for i in range(num_stacked(stacked)):
         x = decoder_layer_decode(cfg, layer_view(stacked, i), x,
                                  layer_view(caches, i), pos)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# layered stack (LayeredConfig): a mixer kind and an FFN kind per layer
+# ---------------------------------------------------------------------------
+
+
+def init_layered_stack(init: Init, cfg) -> Params:
+    """``norm1`` / ``norm2`` stacked over every layer, then each kind's
+    params stacked over its layers, drawn kind after kind."""
+    counts = cfg.layer_counts()
+    draws = {"ssm": lambda: {**ssm_mod.init_ssm(init, cfg),
+                             **ssm_mod.init_inner_norms(init, cfg)},
+             "attn": lambda: attn.init_attention(init, cfg),
+             "mlp": lambda: init_mlp(init, cfg),
+             "moe": lambda: moe_mod.init_moe(init, cfg)}
+    p: Params = {
+        "norm1": _stack_draws(
+            lambda: make_norm_params(cfg, cfg.d_model, init), cfg.num_layers),
+        "norm2": _stack_draws(
+            lambda: make_norm_params(cfg, cfg.d_model, init), cfg.num_layers)}
+    for kind, draw in draws.items():
+        if counts[kind]:
+            p[kind] = _stack_draws(draw, counts[kind])
+    return p
+
+
+def _layered_ffn(cfg, kind: str, p: Params, h: torch.Tensor):
+    """The FFN of one layer on the normed input: (y, aux_loss)."""
+    if kind == "moe":
+        with active_tracer().span(SPAN_MOE_FFN, cat="moe"):
+            return moe_mod.moe_share_ffn(cfg, p, h)
+    return apply_mlp(cfg, p, h), \
+        torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def _layered_layer(cfg, kinds, p: Params, carry):
+    """One layer of the layered stack: pre-norm mixer and pre-norm FFN,
+    each with its residual. ``kinds``: (mixer kind, FFN kind)."""
+    mixer, ffn = kinds
+    x, aux = carry
+    h = apply_norm(cfg, p["norm1"], x)
+    if mixer == "ssm":
+        with active_tracer().span(SPAN_SSM_MIXER, cat="layer"):
+            x = x + ssm_mod.ssm_train(cfg, p["mixer"], h,
+                                      ssm_inputs=ssm_mod.normed_ssm_inputs)
+    else:
+        with active_tracer().span(SPAN_ATTN_MIXER, cat="layer"):
+            x = x + attn.attention_train(cfg, p["mixer"], h)
+    y, la = _layered_ffn(cfg, ffn, p["ffn"], apply_norm(cfg, p["norm2"], x))
+    return x + y, aux + la
+
+
+def _layer_parts(stacked: Params, i: int, entry) -> Params:
+    """Layer i's parameters as views, by its ``schedule`` entry."""
+    mixer, mi, ffn, fi = entry
+    return {"norm1": layer_view(stacked["norm1"], i),
+            "norm2": layer_view(stacked["norm2"], i),
+            "mixer": layer_view(stacked[mixer], mi),
+            "ffn": layer_view(stacked[ffn], fi)}
+
+
+def run_layered_train(cfg, stacked: Params, x: torch.Tensor):
+    """The layered stack in order, each layer rematerialised as
+    ``run_stack_train``'s are (``remat_block`` is not read). Returns (x,
+    total_aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(kinds, p, carry):
+        return _layered_layer(cfg, kinds, p, carry)
+
+    step = remat(layer)
+    for i, entry in enumerate(cfg.schedule):
+        x, aux = step((entry[0], entry[2]), _layer_parts(stacked, i, entry),
+                      (x, aux))
+    return x, aux
+
+
+def init_layered_cache(cfg, batch: int, cache_len: int, dtype: torch.dtype,
+                       device: torch.device) -> Params:
+    """K/V stacked over the attention layers, SSM state over the Mamba
+    layers, zeros."""
+    counts = cfg.layer_counts()
+    c: Params = {}
+    if counts["attn"]:
+        c["attn"] = _zeros_stacked(
+            attn.init_kv_cache(cfg, batch, cache_len, dtype, device),
+            counts["attn"])
+    if counts["ssm"]:
+        c["ssm"] = _zeros_stacked(
+            ssm_mod.init_ssm_cache(cfg, batch, dtype, device), counts["ssm"])
+    return c
+
+
+def run_layered_decode(cfg, stacked: Params, x: torch.Tensor,
+                       caches: Params, pos: int) -> torch.Tensor:
+    """The layered stack on one token; ``caches`` updated in place."""
+    for i, entry in enumerate(cfg.schedule):
+        mixer, mi, ffn, _ = entry
+        p = _layer_parts(stacked, i, entry)
+        h = apply_norm(cfg, p["norm1"], x)
+        cache = layer_view(caches[mixer], mi)
+        if mixer == "ssm":
+            x = x + ssm_mod.ssm_decode(cfg, p["mixer"], h, cache,
+                                       ssm_inputs=ssm_mod.normed_ssm_inputs)
+        else:
+            x = x + attn.attention_decode(cfg, p["mixer"], h, cache, pos)
+        y, _ = _layered_ffn(cfg, ffn, p["ffn"], apply_norm(cfg, p["norm2"], x))
+        x = x + y
     return x

@@ -19,6 +19,10 @@ VLM, audio). Batch dicts:
 ``loss`` is the training objective: mean next-token cross-entropy plus the
 MoE's auxiliary loss, differentiable under ``torch.func`` (the layer stack
 and the chunked cross-entropy rematerialise through ``utils/remat.py``).
+
+``build_model`` gives a ``LayeredConfig`` (layers of different kinds,
+Jamba) a ``LayeredModel``: the same methods over the layered stack, with
+no positions at all (NoPE: no RoPE, no sinusoid).
 """
 from __future__ import annotations
 
@@ -264,5 +268,50 @@ class Model:
         return total - routed + active
 
 
+class LayeredModel(Model):
+    """A ``LayeredConfig``'s model: a decoder-only LM over the layered
+    stack (``blocks.run_layered_train`` / ``run_layered_decode``)."""
+
+    def init(self, generator: Optional[torch.Generator]) -> Params:
+        cfg = self.cfg
+        init = Init(generator, self.device)
+        dtype = dtype_of(cfg.param_dtype)
+        p: Params = {
+            "embed": embed_init(init, cfg.vocab_size, cfg.d_model, dtype),
+            "final_norm": make_norm_params(cfg, cfg.d_model, init),
+            "layers": blocks.init_layered_stack(init, cfg),
+        }
+        if not cfg.tie_embeddings:
+            p["lm_head"] = dense_init(init, cfg.d_model, cfg.vocab_size, dtype)
+        return p
+
+    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        x = self._scale_embed(params["embed"][tokens])
+        return x.to(dtype_of(self.cfg.compute_dtype))
+
+    def hidden(self, params: Params, batch: Dict[str, torch.Tensor],
+               window: Optional[int] = None):
+        """(hidden (B, S, d), aux_loss); ``window`` is not read (no layer
+        of a layered config is windowed)."""
+        x = self._embed(params, batch["tokens"])
+        return blocks.run_layered_train(self.cfg, params["layers"], x)
+
+    def init_cache(self, batch: int, cache_len: int) -> Params:
+        """``{"attn": K/V of the attention layers, "ssm": state and conv
+        tail of the Mamba layers}``, each stacked over its kind's layers."""
+        return blocks.init_layered_cache(self.cfg, batch, cache_len,
+                                         dtype_of(self.cfg.compute_dtype),
+                                         self.device)
+
+    def decode_step(self, params: Params, cache: Params, tokens: torch.Tensor,
+                    pos: int):
+        x = self._embed(params, tokens)
+        x = blocks.run_layered_decode(self.cfg, params["layers"], x, cache,
+                                      pos)
+        return self._logits(params, x), cache
+
+
 def build_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> Model:
+    if hasattr(cfg, "schedule"):  # a LayeredConfig
+        return LayeredModel(cfg, device)
     return Model(cfg, device)

@@ -25,6 +25,19 @@ Under a traced call (``obs.trace.active_tracer()``, which a traced
 ``make_cohort_step`` sets) the dispatch and the combine are the
 ``moe_dispatch`` and ``moe_combine`` spans; the experts between them are in
 neither.
+
+``moe_share_ffn`` is the layered stack's MoE (``LayeredConfig``): the
+router keeps all ``num_experts`` outputs, but the layer holds only experts
+``[0, experts_held)`` (its share under expert parallelism) and computes
+their part of the output; a token's choice of an absent expert adds
+nothing here. Its gates are left as the softmax gives them (Jamba), and
+it drops no pair: outside ``torch.func`` transforms it runs each held
+expert on its segment of the pairs sorted by expert (``moe_segments.py``,
+which reads the segments' bounds on the host, and so never runs under a
+transform); under a transform (the cohort round's ``vmap(grad)``) it takes the
+capacity dispatch here at T slots an expert (capacity factor E / k),
+which cannot drop since no token picks an expert twice. Nothing in this
+module reads on the host.
 """
 from __future__ import annotations
 
@@ -33,12 +46,14 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import moe_segments
 from repro_torch.models.layers import Init, dense_init, dtype_of
 from repro_torch.obs.trace import (
     SPAN_MOE_COMBINE,
     SPAN_MOE_DISPATCH,
     active_tracer,
 )
+from repro_torch.utils import fold
 
 Params = Dict[str, object]
 
@@ -46,8 +61,10 @@ Params = Dict[str, object]
 def init_moe(init: Init, cfg) -> Params:
     dtype = dtype_of(cfg.param_dtype)
     d, dff, e = cfg.d_model, cfg.resolved_moe_d_ff, cfg.num_experts
+    e = getattr(cfg, "experts_held", 0) or e  # experts stored here
     p: Params = {
-        "router": dense_init(init, d, e, torch.float32, scale=0.02),
+        "router": dense_init(init, d, cfg.num_experts, torch.float32,
+                             scale=0.02),
         "w_gate": init.stacked_normal(e, (d, dff), d ** -0.5, dtype),  # (E, d, dff)
         "w_up": init.stacked_normal(e, (d, dff), d ** -0.5, dtype),
         "w_down": init.stacked_normal(e, (dff, d), dff ** -0.5, dtype),
@@ -191,3 +208,68 @@ def shared_ffn(p: Params, xf: torch.Tensor) -> torch.Tensor:
     sp = p["shared"]
     h = F.silu(xf @ sp["w_gate"]) * (xf @ sp["w_up"])
     return h @ sp["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# the layered stack's MoE: a held share of the routed experts
+# ---------------------------------------------------------------------------
+
+
+def route_share(cfg, p: Params, xf: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``route`` over all ``num_experts`` (held or not), with the top-k
+    gates as the softmax gives them (not renormalised over the k)."""
+    probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.experts_per_token
+    return probs, vals[:, :k], ids[:, :k]
+
+
+def _capacity_share(cfg, p: Params, xf: torch.Tensor,
+                    gate_vals: torch.Tensor, expert_ids: torch.Tensor,
+                    cap: int, held: int) -> torch.Tensor:
+    """``dispatch_combine`` over the held experts' buffer (held, cap, d):
+    a pair of an absent expert is dropped like one over capacity."""
+    d = xf.shape[1]
+    tracer = active_tracer()
+    with tracer.span(SPAN_MOE_DISPATCH, cat="moe"):
+        plan = dispatch_plan(cfg, expert_ids, cap)
+        # a kept pair's slot is expert * cap + its place: below held * cap
+        # exactly when its expert is held
+        keep = plan.keep & (plan.slot < held * cap)
+        slot = torch.where(keep, plan.slot, torch.zeros_like(plan.slot))
+        dest = torch.where(keep, plan.slot,
+                           torch.full_like(plan.slot, held * cap))
+        buf = xf.new_zeros((held * cap + 1, d))
+        buf[dest] = xf[plan.token_idx]
+    out_buf = _expert_ffn(p, buf[:-1].reshape(held, cap, d)).reshape(
+        held * cap, d)
+    with tracer.span(SPAN_MOE_COMBINE, cat="moe"):
+        w = gate_vals.reshape(-1)[plan.sort_idx].to(out_buf.dtype)
+        terms = out_buf[slot] * keep[:, None].to(out_buf.dtype) * w[:, None]
+        y = terms[plan.order[:, 0]]
+        for j in range(1, plan.order.shape[1]):
+            y = y + terms[plan.order[:, j]]
+    return y
+
+
+def moe_share_ffn(cfg, p: Params, x: torch.Tensor):
+    """x: (B, S, d). Returns (y (B, S, d), aux_loss): the held experts'
+    part of the MoE output, in one token group. The load-balance aux is
+    ``moe_ffn``'s over all ``num_experts``."""
+    b, s, d = x.shape
+    e, t = cfg.num_experts, b * s
+    held = cfg.resolved_experts_held
+    xf = x.reshape(t, d)
+    probs, gate_vals, expert_ids = route_share(cfg, p, xf)
+    ce = (expert_ids[:, :1] == torch.arange(e, device=xf.device)
+          ).float().mean(dim=0)
+    aux = e * torch.sum(probs.mean(dim=0) * ce) * cfg.router_aux_coef
+    if fold.level() is None:
+        y = moe_segments.dropless_share(cfg, p, xf, gate_vals, expert_ids,
+                                        held)
+    else:
+        # dropless under a transform: capacity T, factor E / k (no expert
+        # gets a token twice)
+        y = _capacity_share(cfg, p, xf, gate_vals, expert_ids, t, held)
+    return y.reshape(b, s, d), aux

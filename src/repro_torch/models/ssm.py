@@ -10,6 +10,12 @@ recurrence. The decode path is the O(1) recurrent update.
 ``torch.nn.functional.softplus`` goes linear above its threshold (20 by
 default). The port writes it as ``log1p(exp(-|x|)) + relu(x)``, the same
 formula as ``jnp.logaddexp(x, 0)``, with no threshold.
+
+Jamba's Mamba layers (the layered stack's) put an RMSNorm on each of dt,
+B and C after ``x_proj``, before ``dt_proj`` and the scan: their weights
+are ``init_inner_norms``'s, and ``normed_ssm_inputs``, which the layered
+stack hands to ``ssm_train`` and ``ssm_decode`` in place of
+``_ssm_inputs``, applies them.
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan import ops as scan_ops
-from repro_torch.models.layers import Init, dense_init, dtype_of
+from repro_torch.models.layers import Init, dense_init, dtype_of, rms_norm
 
 Params = Dict[str, torch.Tensor]
 
@@ -49,6 +55,13 @@ def init_ssm(init: Init, cfg) -> Params:
     }
 
 
+def init_inner_norms(init: Init, cfg) -> Params:
+    """Jamba's dt, B and C RMSNorm weights (f32, 0: a scale of 1 + w)."""
+    n, dtr = cfg.ssm_state, cfg.resolved_dt_rank
+    return {key: {"w": init.full((width,), 0.0, torch.float32)}
+            for key, width in (("dt_norm", dtr), ("b_norm", n), ("c_norm", n))}
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv as a sum of shifted slices (left pad K-1).
@@ -74,8 +87,25 @@ def _ssm_inputs(cfg, p: Params, x: torch.Tensor
     return dt, b_, c_
 
 
-def ssm_train(cfg, p: Params, u: torch.Tensor) -> torch.Tensor:
-    """u: (B, S, d_model) -> (B, S, d_model)."""
+def normed_ssm_inputs(cfg, p: Params, x: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_ssm_inputs`` with Jamba's RMSNorms (eps 1e-6, scaled by 1 + w, in
+    f32) on dt before ``dt_proj`` and on B and C before the scan."""
+    n = cfg.ssm_state
+    dtr = cfg.resolved_dt_rank
+    dbc = (x @ p["x_proj"]).float()
+    dt, b_, c_ = torch.split(dbc, [dtr, n, n], dim=-1)
+    dt = rms_norm(dt, p["dt_norm"]["w"])
+    b_ = rms_norm(b_, p["b_norm"]["w"])
+    c_ = rms_norm(c_, p["c_norm"]["w"])
+    dt = softplus(dt @ p["dt_proj"] + p["dt_bias"])
+    return dt, b_, c_
+
+
+def ssm_train(cfg, p: Params, u: torch.Tensor,
+              ssm_inputs=_ssm_inputs) -> torch.Tensor:
+    """u: (B, S, d_model) -> (B, S, d_model). ``ssm_inputs`` makes dt, B
+    and C from the conv's output."""
     s = u.shape[1]
     chunk = min(SSM_CHUNK, s)
     if s % chunk:
@@ -84,7 +114,7 @@ def ssm_train(cfg, p: Params, u: torch.Tensor) -> torch.Tensor:
     xz = u @ p["in_proj"]
     x, z = torch.chunk(xz, 2, dim=-1)  # (B,S,di) each
     x = F.silu(_causal_conv(x, p["conv_w"], p["conv_b"]))
-    dt, b_, c_ = _ssm_inputs(cfg, p, x)
+    dt, b_, c_ = ssm_inputs(cfg, p, x)
     a = -torch.exp(p["A_log"])  # (di, N)
     xf = x.float()
     y = scan_ops.selective_scan(xf.contiguous(), dt.contiguous(),
@@ -109,7 +139,8 @@ def init_ssm_cache(cfg, batch: int, dtype: torch.dtype,
     }
 
 
-def ssm_decode(cfg, p: Params, u: torch.Tensor, cache: Params) -> torch.Tensor:
+def ssm_decode(cfg, p: Params, u: torch.Tensor, cache: Params,
+               ssm_inputs=_ssm_inputs) -> torch.Tensor:
     """u: (B, 1, d_model). Returns y (B, 1, d_model); updates ``cache`` in
     place (the JAX package returns a new cache)."""
     xz = u @ p["in_proj"]
@@ -118,7 +149,7 @@ def ssm_decode(cfg, p: Params, u: torch.Tensor, cache: Params) -> torch.Tensor:
     conv_in = torch.cat([cache["conv"], x.to(cache["conv"].dtype)], dim=1)
     xconv = torch.einsum("bkd,kd->bd", conv_in, p["conv_w"]) + p["conv_b"]
     x1 = F.silu(xconv)[:, None, :]  # (B,1,di)
-    dt, b_, c_ = _ssm_inputs(cfg, p, x1)
+    dt, b_, c_ = ssm_inputs(cfg, p, x1)
     a = -torch.exp(p["A_log"])
     da = torch.exp(dt[:, 0, :, None] * a[None])  # (B,di,N)
     dbx = (dt[:, 0] * x1[:, 0].float())[..., None] * b_[:, 0, None, :]

@@ -33,6 +33,7 @@ from repro_torch.obs.sink import (  # noqa: F401
 )
 from repro_torch.obs.trace import (  # noqa: F401
     COHORT_SPAN_NAMES,
+    LAYER_SPAN_NAMES,
     NULL_TRACER,
     SPAN_APPLY,
     SPAN_CHECKPOINT,

@@ -34,6 +34,14 @@ kernel builds (``kernels/cuda_build.py``) add spans of their own;
       resync         arrivals' re-sync, versions, the round telemetry
     moe_dispatch     MoE sort, capacity and buffer fill (in any forward)
     moe_combine      MoE gathers and the weighted sum of the k outputs
+
+The layered stack (``models/blocks.py::run_layered_train``,
+``LAYER_SPAN_NAMES``) records each layer's mixer and MoE:
+
+    ssm_mixer        a Mamba layer's mixer (``ssm_train``), norm excluded
+    attn_mixer       an attention layer's mixer, norm excluded
+    moe_ffn          a MoE layer's FFN: router, ``moe_dispatch``, the
+                     experts, ``moe_combine``
     kernel_load      a CUDA library's first load in a process
       kernel_build   its nvcc run, when the build was not there
 
@@ -86,6 +94,10 @@ SPAN_MOE_COMBINE = "moe_combine"
 COHORT_SPAN_NAMES = (SPAN_COHORT_STEP, SPAN_LOCAL_TRAIN, SPAN_LOCAL_FORWARD,
                      SPAN_PROBE, SPAN_SERVER_PASS, SPAN_RESYNC,
                      SPAN_MOE_DISPATCH, SPAN_MOE_COMBINE)
+SPAN_SSM_MIXER = "ssm_mixer"
+SPAN_ATTN_MIXER = "attn_mixer"
+SPAN_MOE_FFN = "moe_ffn"
+LAYER_SPAN_NAMES = (SPAN_SSM_MIXER, SPAN_ATTN_MIXER, SPAN_MOE_FFN)
 SPAN_KERNEL_LOAD = "kernel_load"
 SPAN_KERNEL_BUILD = "kernel_build"
 
